@@ -1,0 +1,35 @@
+"""String-name model registry of the port (counterpart of
+``super_gradients_tpu/common/registry.py``).
+
+The port keeps its own ``ARCHITECTURES`` dict, so that ``yolo_nas_m`` here never
+collides with the JAX package's entry of the same name.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+
+class RegistryError(KeyError):
+    pass
+
+
+def create_register_decorator(registry: Dict[str, object]) -> Callable:
+    """Create a ``@register(name=None)`` decorator bound to ``registry``."""
+
+    def register(name: Optional[str] = None) -> Callable:
+        def decorator(obj):
+            key = name if name is not None else obj.__name__
+            if key in registry and registry[key] is not obj:
+                raise RegistryError(f"`{key}` already registered as {registry[key]!r}")
+            registry[key] = obj
+            return obj
+
+        return decorator
+
+    return register
+
+
+ARCHITECTURES: Dict[str, Callable] = {}
+
+register_model = create_register_decorator(ARCHITECTURES)

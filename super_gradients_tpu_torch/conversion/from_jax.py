@@ -1,0 +1,101 @@
+"""JAX variables -> PyTorch ``state_dict`` (the inverse of
+``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS).
+
+The JAX package names its flax modules after the original super-gradients
+attributes and maps them with regex rules; this module carries a jax-free copy
+of those rules (``YOLO_NAS_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts
+the layout transforms:
+
+- conv kernel HWIO -> OIHW;
+- conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``;
+- BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
+  plus a ``num_batches_tracked`` of 0 so that ``load_state_dict(strict=True)`` passes.
+
+Both unfused trees and fused ones (``rbr_reparam``) convert. Batch statistics of
+a module that has no parameters in the tree are dropped: the JAX ``fuse()`` keeps
+the statistics of the BNs it folded away, which no module reads.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+Rules = Sequence[Tuple[str, str]]
+
+# applied to the dotted flax path AFTER the model-specific rules
+_GENERIC_RULES: Rules = (
+    # bottlenecks_0 -> bottlenecks.0
+    (r"_(\d+)(?=[._]|$)", r".\1"),
+    # model rules write `§` where a literal underscore-digit must survive the rule above
+    (r"§", "_"),
+)
+
+_LEAF_MAP = {
+    "scale": "weight",  # BN gamma
+    "mean": "running_mean",
+    "var": "running_var",
+    "kernel": "weight",
+    "bias": "bias",
+}
+
+YOLO_NAS_RULES: Rules = (
+    # QARepVGG branch naming
+    (r"branch_3x3_conv", "branch_3x3.conv"),
+    (r"branch_3x3_bn", "branch_3x3.bn"),
+    # heads use ConvBNReLU (-> .seq.conv/.seq.bn) and Sequential-wrapped convs
+    (r"(head\d\.stem)\.conv", r"\1.seq.conv"),
+    (r"(head\d\.stem)\.bn", r"\1.seq.bn"),
+    (r"(head\d\.(?:cls|reg)_convs)\.conv", r"\1.0.seq.conv"),
+    (r"(head\d\.(?:cls|reg)_convs)\.bn", r"\1.0.seq.bn"),
+)
+
+
+def _translate(path: Tuple[str, ...], rules: Rules) -> str:
+    *parents, leaf = path
+    name = ".".join(parents)
+    for pat, repl in tuple(rules) + tuple(_GENERIC_RULES):
+        name = re.sub(pat, repl, name)
+    if leaf == "alpha":  # a bare Parameter in torch
+        return name + ".alpha" if name else "alpha"
+    torch_leaf = _LEAF_MAP.get(leaf, leaf)
+    return f"{name}.{torch_leaf}" if name else torch_leaf
+
+
+def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+    if path[-1] != "kernel":
+        return value
+    if value.ndim != 4:
+        raise ValueError(f"{'/'.join(path)}: only conv kernels are converted, got shape {value.shape}")
+    if "upsample" in path[-2]:
+        return value.transpose(2, 3, 0, 1)  # [kh, kw, in, out] -> ConvTranspose2d [in, out, kh, kw]
+    return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], Any]:
+    flat = {}
+    for k, v in tree.items():
+        p = prefix + (str(k),)
+        if isinstance(v, Mapping):
+            flat.update(_flatten(v, p))
+        else:
+            flat[p] = v
+    return flat
+
+
+def variables_from_jax_to_torch(variables_np: Mapping, rules: Rules = YOLO_NAS_RULES) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` trees of numpy arrays -> torch ``state_dict``."""
+    state_dict: Dict[str, torch.Tensor] = {}
+    param_modules = {path[:-1] for path in _flatten(variables_np.get("params", {}))}
+    for collection, tree in variables_np.items():
+        for path, value in _flatten(tree).items():
+            if collection == "batch_stats" and path[:-1] not in param_modules:
+                continue
+            arr = _to_torch_layout(np.asarray(value), path)
+            state_dict[_translate(path, rules)] = torch.tensor(np.ascontiguousarray(arr))
+    for key in [k for k in state_dict if k.endswith(".running_mean")]:
+        state_dict[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return state_dict

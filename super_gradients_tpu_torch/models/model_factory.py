@@ -1,0 +1,102 @@
+"""models.get — the port's model zoo entry point (counterpart of
+``super_gradients_tpu/models/model_factory.py``, without checkpoint loading).
+
+Each registered architecture is a builder returning a :class:`ModelSpec`; ``get``
+initializes the network from a seeded ``torch.Generator`` on the CPU, moves it to
+the requested device and wraps it in a :class:`DetectionModel` (the only task
+ported so far).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from super_gradients_tpu_torch.common.registry import ARCHITECTURES
+from super_gradients_tpu_torch.inference.processing import Processing
+from super_gradients_tpu_torch.models.sg_model import DetectionModel
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    """What an architecture builder returns (network + metadata)."""
+
+    net: nn.Module
+    num_classes: int
+    input_hw: Tuple[int, int]
+    config: Any = None
+    processing: Optional[Processing] = None
+    class_names: Optional[List[str]] = None
+
+
+def get_architecture(model_name: str):
+    if model_name not in ARCHITECTURES:
+        import difflib
+
+        low = model_name.lower()
+        close = [k for k in ARCHITECTURES if low in k.lower() or k.lower() in low]
+        close += [k for k in difflib.get_close_matches(low, ARCHITECTURES, n=5, cutoff=0.75) if k not in close]
+        hint = f" Close matches: {close[:5]}" if close else ""
+        raise KeyError(f"Unknown architecture `{model_name}`.{hint} ({len(ARCHITECTURES)} registered)")
+    return ARCHITECTURES[model_name]
+
+
+@torch.no_grad()
+def _calibrate_batch_norm(net: nn.Module, generator: torch.Generator, shape: Tuple[int, ...]) -> None:
+    """Set every BatchNorm's running statistics from one eval-mode forward of
+    uniform noise images drawn from ``generator``, at the model's input size.
+
+    With (0, 1) running statistics a randomly initialized deep network has no
+    normalization in eval mode, and its activations grow or vanish with depth
+    (YOLO-NAS-M logits reach ~1e9 at 640x640). Each BN takes the mean and variance
+    of the input it sees in this forward, after the BNs before it were set, so
+    eval-mode activations stay at unit scale and random-weight outputs are finite
+    and spread like a trained network's.
+    """
+
+    def set_stats(bn, inputs):
+        x = inputs[0]
+        bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in net.modules() if isinstance(m, nn.BatchNorm2d)]
+    try:
+        net.eval()(torch.rand(shape, generator=generator))
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def get(
+    model_name: str,
+    num_classes: Optional[int] = None,
+    arch_params: Optional[Dict] = None,
+    seed: int = 0,
+    device="cuda",
+    checkpoint_path: Optional[str] = None,
+    pretrained_weights: Optional[str] = None,
+    **kwargs,
+) -> DetectionModel:
+    """Instantiate a model from the zoo with random weights made from ``seed``.
+
+    ``device`` defaults to ``"cuda"`` and raises when no GPU is visible; pass
+    ``device="cpu"`` to run on the CPU. Checkpoints and pretrained weights are
+    not ported yet and raise.
+    """
+    if checkpoint_path is not None or pretrained_weights is not None:
+        raise NotImplementedError("loading checkpoints / pretrained weights is not ported to super_gradients_tpu_torch yet")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"models.get(..., device='{device}'): CUDA is not available; pass device='cpu' to run on the CPU")
+
+    spec = get_architecture(model_name)(num_classes=num_classes, arch_params=arch_params or {}, **kwargs)
+    generator = torch.Generator().manual_seed(seed)
+    spec.net.reset_parameters(generator)
+    _calibrate_batch_norm(spec.net, generator, (2, 3, *spec.input_hw))
+    return DetectionModel(
+        name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
+        processing=spec.processing, class_names=spec.class_names, device=device,
+    )

@@ -1,0 +1,176 @@
+"""Reusable conv blocks, NCHW (counterpart of ``super_gradients_tpu/modules/blocks.py``).
+
+Attribute names are those of the original super-gradients PyTorch modules
+(``conv``/``bn``, ``seq.conv``, ``branch_3x3.conv``, ``rbr_reparam``), so that the
+JAX converter's name rules map the JAX variables onto these ``state_dict`` keys.
+Padding is the symmetric ``k // 2`` of torch's autopad. BatchNorm takes the
+torch momentum convention (the JAX package stores ``1 - momentum``).
+
+QARepVGG re-parameterization is a method that fuses one block in place
+(:meth:`QARepVGGBlock.fuse_`), with the math of the JAX ``fuse_qarepvgg_params``
+written for OIHW kernels.
+"""
+
+from __future__ import annotations
+
+import math
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+# the activations the YOLO-NAS family's configs can name (the JAX table has more)
+ACTIVATIONS: Dict[Optional[str], Callable[[], nn.Module]] = {
+    "relu": nn.ReLU,
+    "silu": nn.SiLU,
+    "swish": nn.SiLU,
+    "identity": nn.Identity,
+    None: nn.Identity,
+}
+
+
+def get_activation(name) -> nn.Module:
+    """A new activation module by name."""
+    if name not in ACTIVATIONS:
+        raise KeyError(f"Unknown activation `{name}`; known: {sorted(k for k in ACTIVATIONS if k)}")
+    return ACTIVATIONS[name]()
+
+
+def width_multiplier(original: int, factor: float, divisor: Optional[int] = None) -> int:
+    """Channel scaling helper (reference ``modules/utils.py`` width_multiplier)."""
+    if divisor is None:
+        return int(original * factor)
+    return math.ceil(int(original * factor) / divisor) * divisor
+
+
+def _bn(channels: int, eps: float, momentum: float) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+
+
+class ConvBNAct(nn.Module):
+    """Conv2d (no bias, padding k // 2) -> BatchNorm -> activation."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, stride: int = 1, act="relu",
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+        super().__init__()
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)
+        self.bn = _bn(out_channels, bn_eps, bn_momentum)
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(self.conv(x)))
+
+
+class ConvBNReLU(nn.Module):
+    """The same block with its layers under ``seq`` (the reference ``ConvBNReLU``,
+    used by the detection heads: ``heads.head1.stem.seq.conv``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+        super().__init__()
+        self.seq = nn.Sequential(OrderedDict(
+            conv=nn.Conv2d(in_channels, out_channels, kernel, 1, kernel // 2, bias=False),
+            bn=_bn(out_channels, bn_eps, bn_momentum),
+            act=nn.ReLU(),
+        ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.seq(x)
+
+
+def _fuse_bn(kernel: torch.Tensor, bias: Optional[torch.Tensor], bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold eval-mode BN into an OIHW kernel + bias (same op order as the JAX ``_fuse_bn``)."""
+    std = torch.sqrt(bn.running_var + bn.eps)
+    a = bn.weight / std
+    fused_kernel = kernel * a[:, None, None, None]
+    fused_bias = (bias if bias is not None else 0.0) * a + bn.bias - bn.weight * bn.running_mean / std
+    return fused_kernel, fused_bias
+
+
+class QARepVGGBlock(nn.Module):
+    """QARepVGG block (reference ``modules/qarepvgg_block.py``), as YOLO-NAS uses it.
+
+    Branches ``branch_3x3`` (conv + BN), ``branch_1x1`` (conv + bias, times
+    ``alpha``) and identity; their sum goes through ``post_bn`` and the
+    activation. ``fused=True`` builds the deploy form: one ``rbr_reparam`` 3x3
+    conv with bias, then the activation. :meth:`fuse_` turns an unfused block
+    into that form in place. Groups, dilation, squeeze-excitation and the
+    bias-free / post-BN-free variants of the JAX block are not ported: no
+    YOLO-NAS block uses them.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        stride: int = 1,
+        act="relu",
+        use_residual: bool = True,
+        use_alpha: bool = False,
+        bn_eps: float = 1e-5,
+        bn_momentum: float = 0.1,
+        fused: bool = False,
+    ):
+        super().__init__()
+        if use_residual and (in_channels != out_channels or stride != 1):
+            raise ValueError("a residual QARepVGG block needs in_channels == out_channels and stride 1")
+        self.in_channels, self.out_channels, self.stride = in_channels, out_channels, stride
+        self.use_residual, self.use_alpha = use_residual, use_alpha
+        self.fused = fused
+        self.act = get_activation(act)
+        if fused:
+            self.rbr_reparam = self._conv3x3(bias=True)
+            return
+        self.branch_3x3 = nn.Sequential(OrderedDict(
+            conv=self._conv3x3(bias=False),
+            bn=_bn(out_channels, bn_eps, bn_momentum),
+        ))
+        self.branch_1x1 = nn.Conv2d(in_channels, out_channels, 1, stride, 0)
+        if use_alpha:
+            self.alpha = nn.Parameter(torch.ones(1))
+        self.post_bn = _bn(out_channels, bn_eps, bn_momentum)
+
+    def _conv3x3(self, bias: bool) -> nn.Conv2d:
+        return nn.Conv2d(self.in_channels, self.out_channels, 3, self.stride, 1, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self.act(self.rbr_reparam(x))
+        y1 = self.branch_1x1(x)
+        if self.use_alpha:
+            y1 = self.alpha * y1
+        y = self.branch_3x3(x) + y1
+        if self.use_residual:
+            y = y + x
+        return self.act(self.post_bn(y))
+
+    @torch.no_grad()
+    def fused_weights(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kernel OIHW, bias) of the equivalent single 3x3 conv (deploy form)."""
+        kernel3, bias3 = _fuse_bn(self.branch_3x3.conv.weight, None, self.branch_3x3.bn)
+        k1 = nn.functional.pad(self.branch_1x1.weight, (1, 1, 1, 1))
+        alpha = self.alpha[0] if self.use_alpha else 1.0
+        kernel = kernel3 + alpha * k1
+        bias = bias3 + alpha * self.branch_1x1.bias
+        if self.use_residual:
+            idx = torch.arange(self.out_channels, device=kernel.device)
+            identity = torch.zeros_like(kernel)
+            identity[idx, idx, 1, 1] = 1.0
+            kernel = kernel + identity
+        return _fuse_bn(kernel, bias, self.post_bn)
+
+    @torch.no_grad()
+    def fuse_(self) -> "QARepVGGBlock":
+        """Re-parameterize this block in place into its deploy form."""
+        if self.fused:
+            return self
+        kernel, bias = self.fused_weights()
+        conv = self._conv3x3(bias=True).to(device=kernel.device, dtype=kernel.dtype)
+        conv.weight.copy_(kernel)
+        conv.bias.copy_(bias)
+        for name in ("branch_3x3", "branch_1x1", "alpha", "post_bn"):
+            if hasattr(self, name):
+                delattr(self, name)
+        self.rbr_reparam = conv
+        self.fused = True
+        return self

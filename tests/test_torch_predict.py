@@ -1,0 +1,204 @@
+"""The predict slice of the PyTorch port against the JAX package's, end to end.
+
+``get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")`` carries the JAX
+model's weights (``cls_pred`` biases at 0, so that random weights detect
+something). ``predict()`` runs on odd-sized uint8 images through letterbox,
+forward, decode and exact NMS.
+
+The port resizes with ``F.interpolate`` where the JAX package calls cv2, and the
+two differ by one grey level on ~12% of the pixels (pinned below). That is
+enough to reorder near-equal candidates, so the fp32 comparison gives the JAX
+pipeline the port's resize: both then see the same pixels, and the detections
+must agree in count and labels, with boxes to ``atol=5e-2`` and scores to
+``atol=5e-4``. bf16 rounds at other places in the two libraries; it is held to
+matched detection sets at a stated looser bound.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from super_gradients_tpu import models as jax_models
+from super_gradients_tpu_torch import models
+from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
+from super_gradients_tpu_torch.inference.processing import resize_bilinear
+from super_gradients_tpu_torch.ops.bbox import box_iou
+from super_gradients_tpu_torch.ops.kernels.nms_exact import exact_nms_keep
+from test_torch_yolo_nas import jax_numpy_variables
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SIZES = ((50, 70), (64, 64), (97, 33))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    jm = jax_models.get("yolo_nas_s", num_classes=4, image_size=64)
+    v = jax_numpy_variables(jm)
+    jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
+    pm = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
+    pm.net.load_state_dict(variables_from_jax_to_torch(v), strict=True)
+    return jm, pm
+
+
+@pytest.fixture
+def same_resize(monkeypatch):
+    """Give the JAX pipeline the port's resize (cv2's differs by +-1 grey level)."""
+    import super_gradients_tpu.inference.processing as jax_processing
+
+    monkeypatch.setattr(jax_processing, "_resize_bilinear", resize_bilinear)
+
+
+def _images(seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in SIZES]
+
+
+def matched_fraction(a, b, iou_min):
+    """Share of detections matched one to one across two sets: same label and
+    IoU >= iou_min (or identical boxes, which clipping can make zero-area)."""
+    if len(a) == 0 or len(b) == 0:
+        return float(len(a) == len(b))
+    iou = box_iou(torch.from_numpy(a.bboxes_xyxy), torch.from_numpy(b.bboxes_xyxy)).numpy()
+    same = np.abs(a.bboxes_xyxy[:, None] - b.bboxes_xyxy[None]).max(-1) <= 1e-3
+    ok = ((iou >= iou_min) | same) & (a.labels[:, None] == b.labels[None])
+    used, matched = set(), 0
+    for i in range(len(a)):
+        for j in np.flatnonzero(ok[i]):
+            if j not in used:
+                used.add(j)
+                matched += 1
+                break
+    return matched / max(len(a), len(b))
+
+
+def test_resize_within_one_grey_level_of_cv2():
+    """F.interpolate bilinear (half-pixel, no antialias) vs cv2 INTER_LINEAR:
+    at most one grey level apart (cv2 uses 11-bit fixed-point weights)."""
+    import cv2
+
+    rng = np.random.RandomState(1)
+    for (h, w), (oh, ow) in [((50, 70), (43, 60)), ((97, 33), (60, 20)), ((480, 640), (477, 636)), ((20, 30), (61, 92))]:
+        img = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        got = resize_bilinear(img, (oh, ow)).astype(int)
+        ref = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_LINEAR).astype(int)
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() <= 1
+
+
+@pytest.mark.parametrize("fuse_model", [True, False])
+def test_predict_fp32_matches_jax(pair, same_resize, fuse_model):
+    jm, pm = pair
+    images = _images()
+    ref = jm.predict(images, bf16=False, fuse_model=fuse_model)
+    got = pm.predict(images, bf16=False, fuse_model=fuse_model)
+    assert len(got) == len(ref) == len(SIZES)
+    for g, r in zip(got, ref):
+        assert len(g) > 0 and len(g) == len(r)
+        np.testing.assert_array_equal(g.labels, r.labels)
+        np.testing.assert_allclose(g.bboxes_xyxy, r.bboxes_xyxy, atol=5e-2, rtol=0)
+        np.testing.assert_allclose(g.confidence, r.confidence, atol=5e-4, rtol=0)
+        assert g.image.shape == r.image.shape
+
+
+def test_predict_bf16_matches_jax_loosely(pair, same_resize):
+    """bf16 convs round differently in the two libraries (and the JAX init's logits
+    reach |100|, so 0.4% bf16 steps move scores a lot): at least 70% of the
+    detections must match one to one with the same label at IoU >= 0.5."""
+    jm, pm = pair
+    images = _images(1)
+    ref = jm.predict(images)
+    got = pm.predict(images)
+    for g, r in zip(got, ref):
+        assert len(g) > 0 and np.isfinite(g.bboxes_xyxy).all() and np.isfinite(g.confidence).all()
+        assert matched_fraction(g, r, 0.5) >= 0.7
+
+
+def test_predict_batch_tensor_matches_jax(pair):
+    jm, pm = pair
+    x = np.random.RandomState(2).rand(2, 64, 64, 3).astype(np.float32)
+    ref = jm.predict_batch_tensor(jnp.asarray(x), bf16=False)
+    got = pm.predict_batch_tensor(torch.from_numpy(x), bf16=False)
+    np.testing.assert_array_equal(got.num_detections.numpy(), np.asarray(ref.num_detections))
+    np.testing.assert_array_equal(got.labels.numpy(), np.asarray(ref.labels))
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(ref.boxes), atol=5e-2, rtol=0)
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(ref.scores), atol=5e-4, rtol=0)
+    assert (got.num_detections > 0).all()
+
+
+def test_predict_nms_modes(pair, monkeypatch):
+    """exact and pallas both run kernel K1 (its plain version on the CPU) and agree."""
+    import super_gradients_tpu_torch.ops.nms as nms_mod
+
+    _, pm = pair
+    calls = []
+
+    def counting(boxes, valid, t):
+        calls.append(boxes.shape)
+        return exact_nms_keep(boxes, valid, t)
+
+    monkeypatch.setattr(nms_mod, "exact_nms_keep", counting)
+    images = _images(3)
+    exact, pallas = (pm.predict(images, bf16=False, nms_mode=m) for m in ("exact", "pallas"))
+    assert len(calls) == 2
+    for e, p in zip(exact, pallas):
+        np.testing.assert_array_equal(e.labels, p.labels)
+        np.testing.assert_array_equal(e.bboxes_xyxy, p.bboxes_xyxy)
+    for mode in ("fast", "matrix"):
+        assert all(len(p) > 0 for p in pm.predict(images, bf16=False, nms_mode=mode))
+
+
+def test_get_on_cuda_raises_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        models.get("yolo_nas_s", num_classes=4, image_size=64)
+
+
+def test_unported_inputs_and_outputs_raise(pair):
+    _, pm = pair
+    with pytest.raises(TypeError):
+        pm.predict("image.jpg")
+    pred = pm.predict(_images()[0], bf16=False)[0]
+    with pytest.raises(NotImplementedError):
+        pred.draw()
+    with pytest.raises(NotImplementedError):
+        models.get("yolo_nas_s", device="cpu", pretrained_weights="coco")
+
+
+def test_port_runs_with_jax_blocked():
+    """The port imports and predicts with jax, flax, cv2, PIL and the JAX package
+    unavailable (as on the GPU machine), and never imports them."""
+    code = textwrap.dedent(
+        """
+        import sys
+        for name in ("jax", "flax", "cv2", "PIL", "super_gradients_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(2)
+        from super_gradients_tpu_torch import models
+        model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
+        for name, module in model.net.named_modules():
+            if name.endswith("cls_pred"):
+                module.bias.data.zero_()
+        rng = np.random.RandomState(0)
+        preds = model.predict([rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)])
+        assert len(preds) == 1 and len(preds[0]) > 0, len(preds[0])
+        assert np.isfinite(preds[0].bboxes_xyxy).all()
+        print("OK", len(preds[0]))
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("OK")

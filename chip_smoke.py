@@ -9,15 +9,23 @@ result) without CUDA or without the port's sources next to it. Phases:
 
 1. build kernel K1 (exact-NMS keep mask, ``csrc/nms_exact.cu``) from the sources;
 2. K1 against its plain PyTorch version on the card: keep masks bit-equal on random
-   fixtures at the predict path's shape (B=8, K=1024), the suppression chain and
-   threshold-adjacent IoUs; both timed at B=8 and B=32, K=1024;
+   fixtures at the predict path's shape (B=8, K=1024), the suppression chain,
+   threshold-adjacent IoUs and the sweep's tiling (K around multiples of 64, chains
+   across tile edges, valid prefixes, scattered valid boxes, identical and disjoint
+   boxes). K1 timed at B=8 and B=32, K=1024, for valid prefixes of 64, 300 and 1024
+   and for 80% random valid boxes: the whole call with CUDA events, each of its two
+   CUDA kernels with ``torch.profiler``, beside its bound; the plain version at
+   K=1024;
 3. the slice at full width: YOLO-NAS-M, 80 classes, random weights from seed 0
    (``cls_pred`` biases at 0), a few ``predict()`` requests on mixed-size uint8
    images and ``predict_batch_tensor`` on [8, 640, 640, 3], fused bf16 and fp32
    unfused; K1's launch counter must rise and every image must detect something;
 4. the fp32 unfused forward and predict on the GPU (TF32 off) against the same
    model on the CPU (plain path);
-5. fused bf16 ``predict_batch_tensor`` throughput at b8 and b32.
+5. fused bf16 ``predict_batch_tensor`` throughput at b8 and b32;
+6. K1 at the predict path's own candidates: the ``batched_nms`` input of fused bf16
+   ``predict_batch_tensor`` at b8 and b32 is captured, K1 is held bit-equal to the
+   plain version on it and timed as in phase 2, and ``batched_nms`` is timed whole.
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -33,6 +41,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "super_gradients_tpu_torch/csrc/nms_exact.cu"
 KERNEL_REPLACES = "super_gradients_tpu/ops/pallas/nms_kernel.py:93"
+K1_CUDA_KERNELS = ("nms_mask_kernel", "nms_sweep_kernel")
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate (at a 700 W limit)
+H100_FP32_FLOP_PER_S = 67e12
+H100_BYTES_PER_S = 3.35e12
+IOU_FLOPS = 13  # 2 min, 2 max, 2 sub, 2 clamps, mul, add, sub, +eps, div, with areas computed once
 
 
 def check(cond, msg):
@@ -40,14 +53,20 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters, warmup=2):
-    """Mean device milliseconds of fn() over iters calls (CUDA events)."""
+def cuda_ms(fn, iters, warmup=2, queue_ahead=False):
+    """Mean device milliseconds of fn() over iters calls (CUDA events).
+
+    With ``queue_ahead`` the device first sleeps while the host enqueues every call, so
+    the events time the device alone and not how fast the host issues the launches.
+    """
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of device clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -65,6 +84,88 @@ def random_sorted_boxes(torch, gen, b, k, num_classes=80, size=640.0):
     boxes = boxes + (cls * 8192.0)[..., None]
     valid = torch.rand((b, k), generator=gen) > 0.2
     return boxes.cuda().contiguous(), valid.cuda().contiguous()
+
+
+def k1_bound(valid, k):
+    """Least time (ms) the card could take for K1 on these inputs, and what bounds it.
+
+    Operations: the IoUs of the pairs among each image's valid boxes. Bytes: boxes and
+    valid read once, keep written once.
+    """
+    n = valid.sum(dim=1).double()
+    flops = IOU_FLOPS * float((n * (n - 1) / 2).sum())
+    nbytes = valid.shape[0] * k * (16 + 1 + 1)
+    ops_ms, bytes_ms = 1e3 * flops / H100_FP32_FLOP_PER_S, 1e3 * nbytes / H100_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def k1_kernel_ms(torch, fn, iters=50):
+    """Mean device ms per call of each of K1's CUDA kernels (torch.profiler key_averages)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per_kernel = dict.fromkeys(K1_CUDA_KERNELS, 0.0)
+    for evt in prof.key_averages():
+        for name in K1_CUDA_KERNELS:
+            if name in evt.key:
+                total_us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
+                per_kernel[name] += total_us / 1e3 / iters
+    check(all(ms > 0 for ms in per_kernel.values()), f"the profiler saw no device time for a K1 kernel: {per_kernel}")
+    return per_kernel
+
+
+def time_k1(torch, nms_exact, label, boxes, valid, t, phase=2):
+    """K1's device time on these inputs: whole call, per CUDA kernel, and its bound."""
+    call = lambda: nms_exact.exact_nms_keep(boxes, valid, t)  # noqa: E731
+    per_kernel = k1_kernel_ms(torch, call)
+    ms = cuda_ms(call, iters=50, queue_ahead=True)
+    bound_ms, bound_by = k1_bound(valid, boxes.shape[1])
+    passes = ", ".join(f"{name} {kms:.4f} ms" for name, kms in per_kernel.items())
+    print(f"[{phase}] K1 {label}: {ms:.4f} ms a call (CUDA events; {passes} by the profiler); "
+          f"bound {1e3 * bound_ms:.3f} us by {bound_by}, reached {100 * bound_ms / ms:.2f}%")
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, **per_kernel}
+
+
+def check_k1_equal(torch, nms_exact, name, boxes, valid, t):
+    got = nms_exact.exact_nms_keep(boxes, valid, t)
+    torch.cuda.synchronize()
+    ref = nms_exact.exact_nms_keep_plain(boxes, valid, t)
+    err = (got.float() - ref.float()).abs().max().item() if got.numel() else 0.0
+    check(err == 0.0, f"K1 keep mask differs from the plain version on {name}")
+    return err
+
+
+def tiling_fixtures(torch, gen):
+    """Cases aimed at the sweep's 64-box tiles and the valid extent (name, boxes, valid, t)."""
+    out = [(f"random_b2_k{k}", *random_sorted_boxes(torch, gen, 2, k, num_classes=4), 0.5)
+           for k in (1, 63, 64, 65, 128, 129, 1000)]
+    # chains of boxes 3 px apart across the tile edges 63/64/65 and 127/128/129: at t=0.3
+    # neighbours overlap (IoU 0.54), boxes two apart do not (0.25)
+    x = torch.arange(130, dtype=torch.float32) * 100
+    for start, base in ((60, 20000.0), (124, 40000.0)):
+        n = torch.arange(min(9, 130 - start), dtype=torch.float32)
+        x[start:start + len(n)] = base + 3 * n
+    chain = torch.stack([x, torch.zeros_like(x), x + 10, torch.full_like(x, 10)], -1)[None].cuda()
+    out.append(("tile_chain", chain, torch.ones(1, 130, dtype=torch.bool).cuda(), 0.3))
+    boxes, _ = random_sorted_boxes(torch, gen, 4, 1024, num_classes=4)
+    prefixes = torch.arange(1024)[None, :] < torch.tensor([0, 1, 64, 300])[:, None]
+    out.append(("prefixes_0_1_64_300_of_1024", boxes, prefixes.cuda(), 0.6))
+    boxes, _ = random_sorted_boxes(torch, gen, 2, 300)
+    scattered = torch.rand((2, 300), generator=gen) < 0.4
+    scattered[:, 64:128] = False
+    out.append(("non_prefix", boxes, scattered.cuda(), 0.5))
+    same = torch.tensor([5.0, 5.0, 50.0, 40.0]).expand(1, 150, 4).contiguous().cuda()
+    out.append(("identical", same, torch.ones(1, 150, dtype=torch.bool).cuda(), 0.5))
+    i = torch.arange(150, dtype=torch.float32)
+    xy = torch.stack([(i % 15) * 20, (i // 15) * 20], -1)
+    apart = torch.cat([xy, xy + 10], -1)[None].cuda()
+    out.append(("disjoint", apart, torch.ones(1, 150, dtype=torch.bool).cuda(), 0.5))
+    return out, chain
 
 
 def phase_kernel(torch, nms_exact, box_iou):
@@ -89,25 +190,28 @@ def phase_kernel(torch, nms_exact, box_iou):
     for i, t in enumerate(iou[:, 0, 1:64].flatten().unique()[-5:].tolist()):
         fixtures.append((f"float_iou_equals_t_{i}", boxes, valid, t))
 
-    max_err = 0.0
-    for name, b, v, t in fixtures:
-        got = nms_exact.exact_nms_keep(b, v, t)
-        torch.cuda.synchronize()
-        ref = nms_exact.exact_nms_keep_plain(b, v, t)
-        err = (got.float() - ref.float()).abs().max().item()
-        check(err == 0.0, f"K1 keep mask differs from the plain version on {name}")
-        max_err = max(max_err, err)
+    tiling, tile_chain = tiling_fixtures(torch, gen)
+    fixtures += tiling
+    max_err = max(check_k1_equal(torch, nms_exact, name, b, v, t) for name, b, v, t in fixtures)
     check(nms_exact.exact_nms_keep(chain, ones3, 0.3).tolist() == [[True, False, True]], "chain keep mask")
     check(nms_exact.exact_nms_keep(pair, ones2, 0.3).tolist() == [[True, True]], "IoU == t must not suppress")
     check(nms_exact.exact_nms_keep(pair, ones2, below).tolist() == [[True, False]], "IoU > t must suppress")
+    kept = nms_exact.exact_nms_keep(tile_chain, torch.ones(1, 130, dtype=torch.bool).cuda(), 0.3)[0].cpu()
+    check(kept[60:69].tolist() == [True, False] * 4 + [True] and kept[124:].tolist() == [True, False] * 3,
+          "chains across tile edges keep every other box")
+    print(f"[2] K1 bit-equal to the plain version on {len(fixtures)} fixtures")
 
     timings = {}
     for b in (8, 32):
-        boxes, valid = random_sorted_boxes(torch, gen, b, 1024)
-        ms = cuda_ms(lambda: nms_exact.exact_nms_keep(boxes, valid, 0.7), iters=50)
-        plain_ms = cuda_ms(lambda: nms_exact.exact_nms_keep_plain(boxes, valid, 0.7), iters=3, warmup=1)
-        timings[b] = (ms, plain_ms)
-        print(f"[2] K1 B={b} K=1024: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+        boxes, random_valid = random_sorted_boxes(torch, gen, b, 1024)
+        for n in (64, 300, 1024):
+            valid = (torch.arange(1024)[None, :] < n).expand(b, 1024).contiguous().cuda()
+            timings[b, n] = time_k1(torch, nms_exact, f"B={b} K=1024 valid prefix {n}", boxes, valid, 0.7)
+        timings[b, "random"] = time_k1(torch, nms_exact, f"B={b} K=1024 80% random valid", boxes, random_valid, 0.7)
+        all_valid = torch.ones((b, 1024), dtype=torch.bool).cuda()
+        plain_ms = cuda_ms(lambda: nms_exact.exact_nms_keep_plain(boxes, all_valid, 0.7), iters=3, warmup=1)
+        timings[b, 1024]["plain_ms"] = plain_ms
+        print(f"[2] K1 plain version B={b} K=1024 all valid: {plain_ms:.3f} ms")
     return max_err, timings
 
 
@@ -233,6 +337,49 @@ def phase_timing(torch, model):
         print(f"[5] yolo_nas_m fused bf16 predict_batch_tensor b{b}: {b * iters / dt:.1f} img/s ({1e3 * dt / iters:.2f} ms/batch)")
 
 
+def capture_call(module, name, run):
+    """Runs ``run()`` with ``module.name`` wrapped; returns the wrapped function's last (args, kwargs)."""
+    original, seen = getattr(module, name), []
+
+    def capturing(*args, **kwargs):
+        seen.append((args, kwargs))
+        return original(*args, **kwargs)
+
+    setattr(module, name, capturing)
+    try:
+        run()
+    finally:
+        setattr(module, name, original)
+    check(len(seen) > 0, f"{module.__name__}.{name} was never called")
+    return seen[-1]
+
+
+def phase_candidates(torch, model, nms_exact):
+    """K1 and batched_nms at the candidates the predict path gives them (fused bf16); returns max_abs_err."""
+    from super_gradients_tpu_torch.models import sg_model
+    from super_gradients_tpu_torch.ops import nms as nms_module
+
+    max_err = 0.0
+    for b in (8, 32):
+        batch = torch.rand((b, 640, 640, 3), generator=torch.Generator().manual_seed(3)).cuda()
+        nms_args, nms_kwargs = capture_call(sg_model, "batched_nms", lambda: model.predict_batch_tensor(batch))
+        with torch.inference_mode():
+            (boxes, valid, t), _ = capture_call(nms_module, "exact_nms_keep",
+                                                lambda: nms_module.batched_nms(*nms_args, **nms_kwargs))
+            max_err = max(max_err, check_k1_equal(torch, nms_exact, f"predict candidates b{b}", boxes, valid, t))
+            n_valid = valid.sum(dim=1)
+            n_kept = nms_exact.exact_nms_keep(boxes, valid, t).sum(dim=1)
+            print(f"[6] b{b} candidates: K={boxes.shape[1]}, valid per image {n_valid.tolist()}, "
+                  f"kept per image {n_kept.tolist()}; K1 bit-equal to the plain version")
+            time_k1(torch, nms_exact, f"b{b} predict candidates", boxes, valid, t, phase=6)
+            nms_call = lambda: nms_module.batched_nms(*nms_args, **nms_kwargs)  # noqa: E731
+            device_ms = cuda_ms(nms_call, iters=20, queue_ahead=True)
+            paced_ms = cuda_ms(nms_call, iters=20)
+        print(f"[6] b{b} batched_nms exact: {device_ms:.4f} ms device time, {paced_ms:.4f} ms "
+              f"as the host issues it (CUDA events)")
+    return max_err
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -258,14 +405,17 @@ def main():
     model, launches = phase_slice(torch, np, models, nms_exact)
     phase_gpu_vs_cpu(torch, np, models, model, matched_fraction_fn(torch, np, bbox.box_iou))
     phase_timing(torch, model)
+    max_err = max(max_err, phase_candidates(torch, model, nms_exact))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")
-    ms, plain_ms = timings[8]
+    k1 = timings[8, 1024]  # the predict path's shape, every candidate valid
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "launches": launches, "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+        "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

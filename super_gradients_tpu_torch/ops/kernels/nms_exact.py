@@ -5,10 +5,12 @@ pallas_exact_nms_keep`` (and the XLA loop ``ops/nms.py::_exact_keep_mask``)::
 
     keep[i] = valid[i] & ~any_{j<i}(keep[j] & IoU(i, j) > t)
 
-over score-sorted boxes. The CUDA kernel (``csrc/nms_exact.cu``) is a bitmask NMS:
-one pass writes the pairwise IoU > t bits, a one-warp-per-image sweep resolves them
-in order. :func:`exact_nms_keep` launches it for CUDA tensors and runs
-:func:`exact_nms_keep_plain` for CPU tensors; there is no fallback between the two.
+over score-sorted boxes. The CUDA kernel (``csrc/nms_exact.cu``) is a blocked bitmask
+NMS: one pass writes the pairwise IoU > t bits of the valid boxes in 64-box tiles; a
+sweep, one block per image, resolves each tile serially on a register and suppresses
+the later tiles in parallel, up to the image's last valid box. :func:`exact_nms_keep`
+launches it for CUDA tensors and runs :func:`exact_nms_keep_plain` for CPU tensors;
+there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ import torch
 from super_gradients_tpu_torch.ops.bbox import box_iou
 from super_gradients_tpu_torch.ops.kernels.build import load_library
 
-MAX_K = 1 << 16  # the sweep's bit vector (K/8 bytes) must fit in 48 KB of shared memory
-MAX_BATCH = 65535  # gridDim.z
+# The sweep keeps three K-bit vectors in shared memory (3K/8 bytes, 24 KB at 65536) and
+# must stay within the 48 KB a block gets without opting in; the mask scratch is K*K/8
+# bytes per image (512 MB at 65536).
+MAX_K = 1 << 16
+MAX_BATCH = 65535  # gridDim.y of the mask pass
 
 
 def exact_nms_keep_plain(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
@@ -76,7 +81,7 @@ def exact_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
-    mask = torch.empty((b, k, (k + 63) // 64), dtype=torch.int64, device=boxes.device)
+    mask = torch.empty((b, (k + 63) // 64, k), dtype=torch.int64, device=boxes.device)
     lib = _library()
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream

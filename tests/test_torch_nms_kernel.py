@@ -52,6 +52,46 @@ def _sparse_valid():
     return boxes, valid
 
 
+def _tile_chain():
+    """Chains of boxes 3 px apart across the tile edges at 63/64/65 and 127/128/129.
+
+    Neighbours overlap at IoU 0.54, boxes two apart at 0.25, all others not at all;
+    at t=0.3 greedy keeps every other box of a chain.
+    """
+    k = 130
+    boxes = np.zeros((1, k, 4), np.float32)
+    for i in range(k):
+        boxes[0, i] = [100.0 * i, 0, 100.0 * i + 10, 10]
+    for start in (60, 124):
+        for n, i in enumerate(range(start, min(start + 9, k))):
+            boxes[0, i] = [20000.0 * (start // 60) + 3 * n, 0, 20000.0 * (start // 60) + 3 * n + 10, 10]
+    return boxes, np.ones((1, k), bool)
+
+
+def _prefix(n):
+    """K=1024 class-offset boxes of which the first ``n`` are valid, as the predict path's prefilter gives."""
+    boxes, _ = _random_boxes(14, 1, 1024, num_classes=4)
+    return boxes, np.arange(1024)[None, :] < n
+
+
+def _non_prefix():
+    """Scattered valid boxes, with a whole tile (64..127) invalid inside the valid extent."""
+    boxes, _ = _random_boxes(15, 2, 300)
+    valid = np.random.RandomState(15).rand(2, 300) < 0.4
+    valid[:, 64:128] = False
+    return boxes, valid
+
+
+def _identical():
+    return np.tile(np.array([[[5, 5, 50, 40]]], np.float32), (1, 150, 1)), np.ones((1, 150), bool)
+
+
+def _disjoint():
+    i = np.arange(150, dtype=np.float32)
+    x, y = (i % 15) * 20, (i // 15) * 20
+    return np.stack([x, y, x + 10, y + 10], -1)[None], np.ones((1, 150), bool)
+
+
 FIXTURES = {
     "seed0_k256": (lambda: _random_boxes(0, 2, 256), 0.5),
     "seed1_k256": (lambda: _random_boxes(1, 2, 256), 0.5),
@@ -64,6 +104,14 @@ FIXTURES = {
     # IoU == t is not suppressed; one float below t it is
     "iou_equals_t": (_threshold_pair, 0.3),
     "iou_above_t": (_threshold_pair, float(np.nextafter(np.float32(0.3), np.float32(0)))),
+    # the sweep's 64-box tiles: ragged and exact edges, chains across them, valid extents
+    **{f"k{k}": (lambda k=k: _random_boxes(20 + k, 2, k), 0.5) for k in (1, 63, 64, 65, 128, 129)},
+    "k1000": (lambda: _random_boxes(21, 1, 1000, num_classes=4), 0.5),
+    "tile_chain": (_tile_chain, 0.3),
+    **{f"prefix_{n}_of_1024": (lambda n=n: _prefix(n), 0.6) for n in (0, 1, 64, 300)},
+    "non_prefix": (_non_prefix, 0.5),
+    "identical": (_identical, 0.5),
+    "disjoint": (_disjoint, 0.5),
 }
 
 
@@ -111,6 +159,20 @@ def test_known_keep_masks():
     boxes, valid = _sparse_valid()
     keep = exact_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)
     assert keep.sum().item() == 1 and keep[1, 5]
+
+
+def test_known_keep_masks_across_tiles():
+    boxes, valid = _tile_chain()
+    keep = exact_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.3)[0].numpy()
+    chained = set(range(60, 69)) | set(range(124, 130))
+    expected = [i not in chained or (i - (60 if i < 124 else 124)) % 2 == 0 for i in range(130)]
+    assert keep.tolist() == expected
+    boxes, valid = _identical()
+    assert exact_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5)[0].nonzero().flatten().tolist() == [0]
+    boxes, valid = _disjoint()
+    assert exact_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.5).all()
+    boxes, valid = _prefix(0)
+    assert not exact_nms_keep(torch.from_numpy(boxes), torch.from_numpy(valid), 0.6).any()
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -50,6 +50,16 @@ class SgModel:
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
 
+    def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Load new weights into ``net`` (strict) and drop every copy derived from the
+        old ones (counterpart of the JAX ``SgModel.update_variables``). ``Trainer.train``
+        hands its weights back through this method only."""
+        self.net.load_state_dict(state_dict, strict=True)
+        self._clear_caches()
+
+    def _clear_caches(self) -> None:
+        """Forget whatever was derived from the weights (nothing at this level)."""
+
     def _prep_host_batches(self, images, batch_size: int):
         """Host side: geometric + photometric preprocessing per image, grouped in batches."""
         image_list = images_to_list(images)
@@ -80,6 +90,9 @@ class DetectionModel(SgModel):
         self._default_max_predictions = 300
         self._default_multi_label_per_box = True
         self._default_class_agnostic_nms = False
+
+    def _clear_caches(self) -> None:
+        self._deploy_nets.clear()
 
     def fuse(self) -> "DetectionModel":
         """A NEW DetectionModel whose every QARepVGG block is re-parameterized to

@@ -156,6 +156,30 @@ def test_predict_nms_modes(pair, monkeypatch):
         assert all(len(p) > 0 for p in pm.predict(images, bf16=False, nms_mode=mode))
 
 
+def _zero_cls_bias(model):
+    for name, module in model.net.named_modules():
+        if name.endswith("cls_pred"):
+            module.bias.data.zero_()
+    return model
+
+
+@pytest.mark.parametrize("deploy", [dict(), dict(fuse_model=False, bf16=False)])
+def test_load_state_dict_drops_stale_deploy_nets(deploy):
+    """New weights loaded through ``DetectionModel.load_state_dict`` reach predict(),
+    also after predict() has built (and cached) its deploy-form network."""
+    x = torch.from_numpy(np.random.RandomState(5).rand(2, 64, 64, 3).astype(np.float32))
+    model = _zero_cls_bias(models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu", seed=0))
+    other = _zero_cls_bias(models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu", seed=1))
+    before = model.predict_batch_tensor(x, **deploy)
+    model.load_state_dict(other.net.state_dict())
+    got, ref = model.predict_batch_tensor(x, **deploy), other.predict_batch_tensor(x, **deploy)
+    assert not torch.equal(before.boxes, ref.boxes)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    with pytest.raises(RuntimeError):
+        model.load_state_dict({"not_a_key": torch.zeros(1)})
+
+
 def test_get_on_cuda_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is visible")

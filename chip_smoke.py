@@ -25,7 +25,22 @@ result) without CUDA or without the port's sources next to it. Phases:
 5. fused bf16 ``predict_batch_tensor`` throughput at b8 and b32;
 6. K1 at the predict path's own candidates: the ``batched_nms`` input of fused bf16
    ``predict_batch_tensor`` at b8 and b32 is captured, K1 is held bit-equal to the
-   plain version on it and timed as in phase 2, and ``batched_nms`` is timed whole.
+   plain version on it and timed as in phase 2, and ``batched_nms`` is timed whole;
+7. the training slice at full width: YOLO-NAS-M, 80 classes, 640x640, seed 0,
+   ``Trainer.train`` in the COCO YOLO-NAS regime (AdamW 2e-4, weight decay 1e-5 off
+   biases and BN, cosine to 0.1 after a linear batch warmup from 1e-6, threshold
+   EMA 0.9997, PPYoloELoss with TAL, bf16) for 2 epochs of 4 pinned batches of 16
+   with up to 120 boxes. Every loss finite, every parameter changed, the EMA
+   weights handed back, and ``predict()`` afterwards runs K1 and differs from before;
+8. one fp32 SGD step (TF32 off) of YOLO-NAS-M at 640, b2, on the GPU and on the CPU,
+   both held to an fp64 CPU step: the assigners' labels are compared (the count of
+   anchors that differ is printed), then every run takes the fp64 run's assignment,
+   and the GPU's loss components and gradients must be no further from fp64 than
+   twice the CPU fp32 run's;
+9. the bf16 train step timed at b16 and b32 on a batch already on the card: ms a
+   step and img/s by CUDA events, split into forward, loss (assigner and losses),
+   backward and optimizer + EMA; the device's idle share (``torch.profiler`` self
+   CUDA time against wall time); peak memory.
 
 The line before the last is the kernels' JSON report; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -99,18 +114,38 @@ def k1_bound(valid, k):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def k1_kernel_ms(torch, fn, iters=50):
-    """Mean device ms per call of each of K1's CUDA kernels (torch.profiler key_averages)."""
+def _self_device_us(evt):
+    return getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0)
+
+
+def profiled(torch, fn, iters, with_cpu=True, attempts=3):
+    """``torch.profiler`` ``key_averages()`` of ``iters`` calls of ``fn``, and the wall
+    ms per call. A session that records no device time at all is repeated, up to
+    ``attempts`` (one session of this script's first H100 runs recorded none)."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
+    for attempt in range(attempts):
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        events = prof.key_averages()
+        if sum(_self_device_us(e) for e in events) > 0:
+            return events, wall_ms
+        print(f"profiler session {attempt + 1} of {attempts} recorded no device time; profiling again")
+    check(False, f"the profiler recorded no device time in {attempts} sessions")
+
+
+def k1_kernel_ms(torch, fn, iters=50):
+    """Mean device ms per call of each of K1's CUDA kernels (torch.profiler key_averages)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    events, _ = profiled(torch, fn, iters)
     per_kernel = dict.fromkeys(K1_CUDA_KERNELS, 0.0)
-    for evt in prof.key_averages():
+    for evt in events:
         for name in K1_CUDA_KERNELS:
             if name in evt.key:
                 total_us = evt.device_time_total if hasattr(evt, "device_time_total") else evt.cuda_time_total
@@ -380,6 +415,214 @@ def phase_candidates(torch, model, nms_exact):
     return max_err
 
 
+# super_gradients_tpu/recipes/training_hyperparams/coco2017_yolo_nas_train_params.yaml, bf16,
+# with the warmup (1000 steps) cut to half of phase 7's 8 steps
+COCO_YOLO_NAS = dict(
+    warmup_mode="LinearBatchLRWarmup", warmup_initial_lr=1e-6, lr_warmup_steps=4, initial_lr=2e-4,
+    lr_mode="CosineLRScheduler", cosine_final_lr_ratio=0.1, zero_weight_decay_on_bias_and_bn=True,
+    loss="PPYoloELoss", criterion_params={"use_static_assigner": False, "num_classes": 80},
+    optimizer="AdamW", optimizer_params={"weight_decay": 1e-5},
+    ema=True, ema_params={"decay": 0.9997, "decay_type": "threshold"}, mixed_precision=True, save_model=False,
+)
+
+
+def phase_train(torch, np, models, nms_exact):
+    """Trainer.train of YOLO-NAS-M at 640 on the card, then predict() on the trained model."""
+    from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
+
+    model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda"))
+    before = {k: v.clone() for k, v in model.net.named_parameters()}
+    images = request_images(np, 5)[:2]
+    predicted_before = model.predict(images)
+    dataset = RandomDetectionDataset(num_samples=64, image_size=(640, 640), num_classes=80, max_boxes=120)
+    loader = torch.utils.data.DataLoader(dataset, batch_size=16, num_workers=4, pin_memory=True)
+    trainer = Trainer("chip_smoke")
+    t0 = time.perf_counter()
+    trainer.train(model, dict(COCO_YOLO_NAS, max_epochs=2), loader)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    history = trainer.train_loss_history
+    # each step's loss is >= 0, so an epoch mean is finite exactly when every step's loss is
+    check(len(history) == 2 and all(np.isfinite(history)), f"train losses {history}")
+    state = trainer.train_state
+    check(state.step == 8, f"{state.step} steps taken, expected 8")
+    after = dict(model.net.named_parameters())
+    unchanged = [k for k in before if torch.equal(before[k], after[k])]
+    # a parameter whose gradient is ~0 can keep its value: AdamW moves it by about
+    # lr * |g| / (|g| + eps), below fp32 resolution for |g| << eps (1e-8)
+    flat = _flat_gradient_parameters(torch, models, dataset)
+    check(set(unchanged) <= flat, f"parameters unchanged by training: {sorted(set(unchanged) - flat)[:5]}")
+    averaged = state.ema.state_dict()
+    check(all(torch.equal(v, averaged[k]) for k, v in model.net.state_dict().items()), "the EMA weights were not handed back")
+    check(any(not torch.equal(v, averaged[k]) for k, v in state.net.state_dict().items()), "EMA equals the live weights")
+    nms_exact.exact_nms_keep.launches = 0
+    predicted_after = model.predict(images)
+    launches = nms_exact.exact_nms_keep.launches
+    check(launches > 0, "predict() after training never launched kernel K1")
+    check(any(len(a) != len(b) or not np.array_equal(a.confidence, b.confidence)
+              for a, b in zip(predicted_after, predicted_before)), "predict() after training gives the old output")
+    print(f"[7] yolo_nas_m Trainer.train 2 epochs x 4 batches of 16 at 640, bf16: {seconds:.1f} s; losses {history}; "
+          f"{len(before) - len(unchanged)} of {len(before)} parameters changed; unchanged {unchanged}, each with "
+          f"|gradient| < 1e-9 on the first batch ({len(flat)} such: {sorted(flat)}); EMA handed back; predict after it: "
+          f"K1 launches {launches}, detections {[len(p) for p in predicted_before]} -> {[len(p) for p in predicted_after]}")
+    del trainer, state, loader
+
+
+def _flat_gradient_parameters(torch, models, dataset):
+    """Parameters whose every gradient element is below 1e-9 in the first bf16 step of
+    phase 7 (with random weights, no anchor of the stride-32 level is positive, so its
+    regression branch gets almost no gradient)."""
+    import numpy as np
+
+    from super_gradients_tpu_torch.training import Trainer
+
+    model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda"))
+    step = Trainer("chip_smoke_probe").prepare(model, COCO_YOLO_NAS, steps_per_epoch=1)
+    images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(16))))
+    loss, _ = step.loss(step.forward(images.cuda().contiguous(memory_format=torch.channels_last)), targets.cuda())
+    step.backward(loss)
+    flat = {k for k, p in step.state.net.named_parameters() if p.grad is None or float(p.grad.abs().max()) < 1e-9}
+    del step, model
+    torch.cuda.empty_cache()
+    return flat
+
+
+class _FixedAssigner:
+    """Stands in for a loss's assigner: returns one precomputed assignment."""
+
+    def __init__(self, result):
+        self.result = result
+
+    def __call__(self, *args, **kwargs):
+        return self.result
+
+
+def _one_step(torch, model, images, targets, assign=None):
+    """Forward, loss and backward of one fp32 SGD train step; returns the step,
+    its assignment, its loss components and its gradients (fp64, on the CPU)."""
+    from super_gradients_tpu_torch.training import Trainer
+
+    params = dict(COCO_YOLO_NAS, optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-5},
+                  ema=False, mixed_precision=False, lr_warmup_steps=0, initial_lr=1e-3)
+    step = Trainer("chip_smoke_fp32").prepare(model, params, steps_per_epoch=1)
+    out = step.forward(images)
+    own = step.criterion.assign(out, targets)
+    if assign is not None:
+        step.criterion.assigner = _FixedAssigner(type(assign)(*(t.to(images.device, t.dtype if not t.is_floating_point()
+                                                                          else images.dtype) for t in assign)))
+    loss, comps = step.loss(out, targets)
+    step.backward(loss)
+    grads = {k: p.grad.detach().double().cpu() for k, p in step.state.net.named_parameters() if p.grad is not None}
+    step.update()
+    comps = {k: float(v.detach()) for k, v in dict(comps, loss=loss).items()}
+    return own, comps, grads
+
+
+def phase_train_gpu_vs_cpu(torch, np, models):
+    """One fp32 step on the GPU and the CPU, held to an fp64 CPU step (phase 4's rule)."""
+    import types
+
+    from super_gradients_tpu_torch.training import RandomDetectionDataset
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model = models.get("yolo_nas_m", num_classes=80, seed=0, device="cpu")
+        dataset = RandomDetectionDataset(num_samples=2, image_size=(640, 640), num_classes=80, max_boxes=120)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(2))))
+        runs = {}
+        for name, device, dtype in (("fp64 CPU", "cpu", torch.float64), ("fp32 CPU", "cpu", torch.float32),
+                                    ("fp32 GPU", "cuda", torch.float32)):
+            net = copy.deepcopy(cpu_model.net).to(device, dtype)
+            model = types.SimpleNamespace(net=net, device=torch.device(device))
+            x, t = images.to(device, dtype), targets.to(device, dtype)
+            if device == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            ref_assign = runs["fp64 CPU"][0] if runs else None
+            runs[name] = _one_step(torch, model, x, t, assign=ref_assign)
+            del net, model
+        labels64 = runs["fp64 CPU"][0].labels
+        for name in ("fp32 CPU", "fp32 GPU"):
+            diff = int((runs[name][0].labels.cpu() != labels64).sum())
+            print(f"[8] {name}: {diff} of {labels64.numel()} anchors assigned another label than fp64 CPU "
+                  f"({int((labels64 != 80).sum())} foreground)")
+        gpu_cpu = int((runs["fp32 GPU"][0].labels.cpu() != runs["fp32 CPU"][0].labels).sum())
+        print(f"[8] fp32 GPU vs fp32 CPU: {gpu_cpu} anchors with another label; all runs below take the fp64 assignment")
+        ref_comps, ref_grads = runs["fp64 CPU"][1], runs["fp64 CPU"][2]
+        for key in ("loss_cls", "loss_iou", "loss_dfl", "loss"):
+            errs = {name: abs(runs[name][1][key] - ref_comps[key]) for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[8] {key} {ref_comps[key]:.6f} (fp64 CPU): GPU err {errs['fp32 GPU']:.3g}, CPU err {errs['fp32 CPU']:.3g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-6 * abs(ref_comps[key]),
+                  f"GPU fp32 {key} more than twice as far from fp64 as the CPU's")
+        for group in ("backbone", "neck", "heads", ""):
+            keys = [k for k in ref_grads if k.startswith(group)]
+            norm = float(sum((ref_grads[k] ** 2).sum() for k in keys) ** 0.5)
+            errs = {name: float(sum(((runs[name][2][k] - ref_grads[k]) ** 2).sum() for k in keys) ** 0.5)
+                    for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[8] gradients {group or 'all'} (norm {norm:.4g}): GPU L2 err {errs['fp32 GPU']:.4g}, "
+                  f"CPU L2 err {errs['fp32 CPU']:.4g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-7 * norm,
+                  f"GPU fp32 gradients ({group or 'all'}) more than twice as far from fp64 as the CPU's")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_train_timing(torch, np, models):
+    """bf16 train step of YOLO-NAS-M at 640, b16 and b32, on a batch already on the card."""
+    from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
+
+    model = models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda")
+    for b in (16, 32):
+        step = Trainer("chip_smoke_timing").prepare(model, dict(COCO_YOLO_NAS, lr_warmup_steps=1000), steps_per_epoch=100)
+        dataset = RandomDetectionDataset(num_samples=b, image_size=(640, 640), num_classes=80, max_boxes=120)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(b))))
+        images = images.cuda().contiguous(memory_format=torch.channels_last)
+        targets = targets.cuda()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(events=None):
+            marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+            marks[0]()
+            out = step.forward(images)
+            marks[1]()
+            loss, _ = step.loss(out, targets)
+            marks[2]()
+            step.backward(loss)
+            marks[3]()
+            step.update()
+            marks[4]()
+            return loss
+
+        for _ in range(3):
+            run()
+        iters = 10
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+        for ev in events:
+            run(ev)
+        torch.cuda.synchronize()
+        parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+        step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+        # device activity only: tracing every CPU op would slow the host, which bounds this step
+        events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+        kernels = sorted(events, key=lambda e: -_self_device_us(e))
+        busy_ms = sum(_self_device_us(e) for e in kernels) / 1e3 / 5
+        top = ", ".join(f"{e.key[:60]} x{e.count // 5} {_self_device_us(e) / 5e3:.2f} ms" for e in kernels[:8])
+        loss = run()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(loss)), f"b{b} train loss not finite")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[9] yolo_nas_m bf16 train step b{b}: {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.1f} img/s (CUDA events); "
+              f"forward {parts[0]:.2f}, loss {parts[1]:.2f}, backward {parts[2]:.2f}, optimizer+EMA {parts[3]:.2f} ms; "
+              f"profiled (device activity only): wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms, "
+              f"idle share {1 - busy_ms / wall_ms:.3f}; "
+              f"peak memory {peak:.2f} GiB")
+        print(f"[9] b{b} device time by kernel, per step: {len(kernels)} kinds, "
+              f"{sum(e.count for e in kernels) // 5} launches; top: {top}")
+        del step, images, targets, loss, events, kernels
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -406,6 +649,11 @@ def main():
     phase_gpu_vs_cpu(torch, np, models, model, matched_fraction_fn(torch, np, bbox.box_iou))
     phase_timing(torch, model)
     max_err = max(max_err, phase_candidates(torch, model, nms_exact))
+    del model
+    torch.cuda.empty_cache()
+    phase_train(torch, np, models, nms_exact)
+    phase_train_gpu_vs_cpu(torch, np, models)
+    phase_train_timing(torch, np, models)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

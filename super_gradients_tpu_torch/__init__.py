@@ -13,6 +13,7 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "models": "super_gradients_tpu_torch.models",
+    "training": "super_gradients_tpu_torch.training",
 }
 
 
@@ -26,4 +27,4 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["models", "__version__"]
+__all__ = ["models", "training", "__version__"]

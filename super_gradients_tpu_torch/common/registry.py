@@ -1,7 +1,7 @@
-"""String-name model registry of the port (counterpart of
+"""String-name registries of the port (counterpart of
 ``super_gradients_tpu/common/registry.py``).
 
-The port keeps its own ``ARCHITECTURES`` dict, so that ``yolo_nas_m`` here never
+The port keeps its own dicts, so that ``yolo_nas_m`` or ``PPYoloELoss`` here never
 collides with the JAX package's entry of the same name.
 """
 
@@ -31,5 +31,11 @@ def create_register_decorator(registry: Dict[str, object]) -> Callable:
 
 
 ARCHITECTURES: Dict[str, Callable] = {}
+LOSSES: Dict[str, Callable] = {}
+LR_SCHEDULERS: Dict[str, Callable] = {}
+OPTIMIZERS: Dict[str, Callable] = {}
 
 register_model = create_register_decorator(ARCHITECTURES)
+register_loss = create_register_decorator(LOSSES)
+register_lr_scheduler = create_register_decorator(LR_SCHEDULERS)
+register_optimizer = create_register_decorator(OPTIMIZERS)

@@ -46,6 +46,7 @@ class SgModel:
         self.config = config
         self._processing = processing
         self._class_names = class_names
+        self._deploy_nets: Dict[Tuple[bool, bool], nn.Module] = {}  # derived from net's weights
 
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
@@ -55,10 +56,7 @@ class SgModel:
         old ones (counterpart of the JAX ``SgModel.update_variables``). ``Trainer.train``
         hands its weights back through this method only."""
         self.net.load_state_dict(state_dict, strict=True)
-        self._clear_caches()
-
-    def _clear_caches(self) -> None:
-        """Forget whatever was derived from the weights (nothing at this level)."""
+        self._deploy_nets.clear()
 
     def _prep_host_batches(self, images, batch_size: int):
         """Host side: geometric + photometric preprocessing per image, grouped in batches."""
@@ -82,7 +80,6 @@ class DetectionModel(SgModel):
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
-        self._deploy_nets: Dict[Tuple[bool, bool], nn.Module] = {}
         # defaults mirror CustomizableDetector (customizable_detector.py:84-92)
         self._default_nms_iou = 0.7
         self._default_nms_conf = 0.25
@@ -90,9 +87,6 @@ class DetectionModel(SgModel):
         self._default_max_predictions = 300
         self._default_multi_label_per_box = True
         self._default_class_agnostic_nms = False
-
-    def _clear_caches(self) -> None:
-        self._deploy_nets.clear()
 
     def fuse(self) -> "DetectionModel":
         """A NEW DetectionModel whose every QARepVGG block is re-parameterized to

@@ -2,8 +2,11 @@
 
 Stride-1 max pooling with -inf padding composes: ``pool9(x) == pool5(pool5(x))``
 and ``pool13(x) == pool5(pool5(pool5(x)))``. The (5, 9, 13) pyramid is therefore
-three chained 5x5 pools. Forward only: the JAX module's custom backward exists
-for the TPU's slow select-and-scatter and has no counterpart here.
+three chained 5x5 pools. The JAX module's custom backward exists for the TPU's
+slow select-and-scatter and has no counterpart here: torch's ``max_pool2d``
+backward already sends each output's gradient to the first max of its window in
+row-major order, as that custom backward does (``tests/test_torch_blocks.py`` on
+the CPU, ``tests/test_torch_train_cuda.py`` on a GPU).
 """
 
 from __future__ import annotations

@@ -1,0 +1,14 @@
+"""Loss registry surface of the port (counterpart of
+``super_gradients_tpu/training/losses/__init__.py``; PPYoloELoss only so far)."""
+
+from super_gradients_tpu_torch.common.registry import LOSSES
+from super_gradients_tpu_torch.training.losses.ppyolo_loss import PPYoloELoss  # noqa: F401
+
+
+def get_loss(name_or_loss, criterion_params=None):
+    """A loss by registry name, built with ``criterion_params``; a callable passes through."""
+    if callable(name_or_loss):
+        return name_or_loss
+    if name_or_loss not in LOSSES:
+        raise KeyError(f"Unknown loss `{name_or_loss}`; registered: {sorted(LOSSES)}")
+    return LOSSES[name_or_loss](**(criterion_params or {}))

@@ -147,6 +147,51 @@ def test_chained_max_pools_match_jax():
         np.testing.assert_array_equal(g.permute(0, 2, 3, 1).numpy(), np.asarray(r))
 
 
+@pytest.mark.parametrize("momentum", [0.03, 0.1])
+def test_conv_bn_act_train_mode_matches_jax(momentum):
+    """Train mode: the outputs (batch statistics) and the new running mean match
+    JAX; the BN momentum is passed through in torch's convention (JAX stores
+    1 - momentum). The running variance is torch's unbiased update: the JAX one's
+    batch variance times n/(n-1), n = B*H*W (a divergence kept on purpose)."""
+    x = _input(7, 6, hw=(3, 5))  # n = 2 * 3 * 5 = 30
+    jm = jblocks.ConvBNAct(out_channels=8, kernel=3, bn_eps=EPS, bn_momentum=momentum)
+    variables = _randomize(jm.init(jax.random.PRNGKey(3), jnp.asarray(x)), 8)
+    y_ref, mutated = jm.apply(jax.tree_util.tree_map(jnp.asarray, variables), jnp.asarray(x), train=True,
+                              mutable=["batch_stats"])
+    pm = blocks.ConvBNAct(6, 8, 3, bn_eps=EPS, bn_momentum=momentum)
+    pm.load_state_dict(variables_from_jax_to_torch(variables), strict=True)
+    v0 = pm.bn.running_var.clone()
+    with torch.no_grad():
+        y = pm.train()(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
+    assert_close(y.permute(0, 2, 3, 1).numpy(), np.asarray(y_ref), atol=5e-4, name="ConvBNAct train")
+    stats = jax.device_get(mutated["batch_stats"]["bn"])
+    np.testing.assert_allclose(pm.bn.running_mean.numpy(), np.asarray(stats["mean"]), atol=1e-6, rtol=1e-5)
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    batch_var_biased = (np.asarray(stats["var"]) - (1 - momentum) * v0.numpy()) / momentum
+    expected = (1 - momentum) * v0.numpy() + momentum * batch_var_biased * n / (n - 1)
+    np.testing.assert_allclose(pm.bn.running_var.numpy(), expected, atol=1e-6, rtol=1e-5)
+    assert not np.allclose(pm.bn.running_var.numpy(), np.asarray(stats["var"]), atol=1e-6, rtol=1e-5)
+
+
+def test_chained_max_pools_backward_matches_jax_on_ties():
+    """Each output's gradient goes to the first max of its window in row-major order
+    (the JAX custom VJP); torch's max_pool2d backward does the same, through the
+    three chained pools. Integer inputs tie inside every window; integer
+    cotangents make the sums exact."""
+    rng = np.random.RandomState(8)
+    x = rng.randint(-2, 3, size=(2, 11, 9, 5)).astype(np.float32)
+    cot = [rng.randint(-3, 4, size=x.shape).astype(np.float32) for _ in range(3)]
+
+    def f(v):
+        return sum(jnp.sum(o * c) for o, c in zip(jax_chained_max_pools(v, (5, 9, 13)), cot))
+
+    ref = np.asarray(jax.grad(f)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    outs = chained_max_pools(xt, (5, 9, 13))
+    sum((o * torch.from_numpy(c).permute(0, 3, 1, 2)).sum() for o, c in zip(outs, cot)).backward()
+    np.testing.assert_array_equal(xt.grad.permute(0, 2, 3, 1).numpy(), ref)
+
+
 def test_chained_max_pools_reject_even_kernels():
     with pytest.raises(ValueError):
         chained_max_pools(torch.zeros(1, 1, 8, 8), (5, 8))

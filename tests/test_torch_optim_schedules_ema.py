@@ -5,8 +5,8 @@ A tiny network (conv-shaped, linear-shaped and 1-D tensors under ``backbone`` an
 ``heads``) is given the same numpy-made gradients for 5 micro-steps on both sides:
 the port through ``Trainer.prepare(...).update()``, the JAX package through the
 transform its trainer builds (``build_optimizer`` with the zero-weight-decay mask
-and LR groups, ``clip_by_global_norm`` before it, ``MultiSteps`` around it, and
-``ema_update`` with the decay of the step before). Parameters and EMA after the
+and LR groups, ``clip_by_global_norm`` before it, the frozen-parameter masks,
+``MultiSteps`` around it, and ``ema_update`` with the decay of the step before). Parameters and EMA after the
 last step: ``atol=1e-6, rtol=1e-5`` (fp32; optax and torch.optim round the same
 formulas in other orders). Schedules and EMA decays: ``rtol=1e-6``, schedules
 also ``atol=1e-8`` (1e-7 of the initial LR: the JAX package evaluates them in
@@ -76,6 +76,9 @@ CASES = {
         optimizer="AdamW", optimizer_params={"weight_decay": 0.05, "eps": 1e-6}, zero_weight_decay_on_bias_and_bn=True,
         initial_lr={"default": 2e-2, "backbone": 1e-2}, clip_grad_norm=1.0, lr_mode="CosineLRScheduler",
         cosine_final_lr_ratio=0.1, ema=True, ema_params={"decay": 0.9997, "decay_type": "threshold"}),
+    "sgd_frozen_heads_clip": dict(
+        optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-2}, initial_lr=0.1, clip_grad_norm=2.0,
+        frozen_param_patterns=["heads"], ema=True, ema_params={"decay": 0.9, "decay_type": "threshold"}),
     "sgd_accumulate_2": dict(
         optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-2}, initial_lr=0.1,
         batch_accumulate=2, clip_grad_norm=2.0, lr_mode="StepLRScheduler", lr_updates=[1],
@@ -117,6 +120,15 @@ def _jax_run(case):
                                         bool(tp.get("zero_weight_decay_on_bias_and_bn")), groups)
     if tp.get("clip_grad_norm"):
         tx = optax.chain(optax.clip_by_global_norm(tp["clip_grad_norm"]), tx)
+    frozen = tp.get("frozen_param_patterns")
+    if frozen:
+        def trainable(tree, invert=False):
+            def leaf(path, _):
+                is_frozen = any(pattern in "/".join(k.key for k in path) for pattern in frozen)
+                return is_frozen if invert else not is_frozen
+            return jax.tree_util.tree_map_with_path(leaf, tree)
+
+        tx = optax.chain(optax.masked(tx, trainable), optax.masked(optax.set_to_zero(), lambda t: trainable(t, True)))
     if k > 1:
         tx = optax.MultiSteps(tx, every_k_schedule=k)
     opt_state = tx.init(params)
@@ -139,8 +151,9 @@ def test_update_matches_optax(case):
     live, averaged = _port_run(case)
     ref_live, ref_avg = _jax_run(case)
     initial = {f"{g}.{n}": v for g, leaves in _values(0).items() for n, v in leaves.items()}
+    frozen = CASES[case].get("frozen_param_patterns", [])
     for name, ref in ref_live.items():
-        assert not np.array_equal(live[name], initial[name]), name
+        assert np.array_equal(live[name], initial[name]) == any(p in name for p in frozen), name
         np.testing.assert_allclose(live[name], ref, atol=1e-6, rtol=1e-5, err_msg=name)
     assert (averaged is None) == (ref_avg is None)
     for name, ref in (ref_avg or {}).items():

@@ -437,10 +437,12 @@ def phase_train(torch, np, models, nms_exact):
     dataset = RandomDetectionDataset(num_samples=64, image_size=(640, 640), num_classes=80, max_boxes=120)
     loader = torch.utils.data.DataLoader(dataset, batch_size=16, num_workers=4, pin_memory=True)
     trainer = Trainer("chip_smoke")
+    nms_exact.exact_nms_keep.launches = 0
     t0 = time.perf_counter()
     trainer.train(model, dict(COCO_YOLO_NAS, max_epochs=2), loader)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    train_launches = nms_exact.exact_nms_keep.launches  # the train step runs no NMS: 0 expected
     history = trainer.train_loss_history
     # each step's loss is >= 0, so an epoch mean is finite exactly when every step's loss is
     check(len(history) == 2 and all(np.isfinite(history)), f"train losses {history}")
@@ -461,7 +463,8 @@ def phase_train(torch, np, models, nms_exact):
     check(launches > 0, "predict() after training never launched kernel K1")
     check(any(len(a) != len(b) or not np.array_equal(a.confidence, b.confidence)
               for a, b in zip(predicted_after, predicted_before)), "predict() after training gives the old output")
-    print(f"[7] yolo_nas_m Trainer.train 2 epochs x 4 batches of 16 at 640, bf16: {seconds:.1f} s; losses {history}; "
+    print(f"[7] yolo_nas_m Trainer.train 2 epochs x 4 batches of 16 at 640, bf16: {seconds:.1f} s "
+          f"(K1 launches in it: {train_launches}); losses {history}; "
           f"{len(before) - len(unchanged)} of {len(before)} parameters changed; unchanged {unchanged}, each with "
           f"|gradient| < 1e-9 on the first batch ({len(flat)} such: {sorted(flat)}); EMA handed back; predict after it: "
           f"K1 launches {launches}, detections {[len(p) for p in predicted_before]} -> {[len(p) for p in predicted_after]}")

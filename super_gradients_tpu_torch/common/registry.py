@@ -32,10 +32,16 @@ def create_register_decorator(registry: Dict[str, object]) -> Callable:
 
 ARCHITECTURES: Dict[str, Callable] = {}
 LOSSES: Dict[str, Callable] = {}
+METRICS: Dict[str, Callable] = {}
+CALLBACKS: Dict[str, Callable] = {}
 LR_SCHEDULERS: Dict[str, Callable] = {}
 OPTIMIZERS: Dict[str, Callable] = {}
+SG_LOGGERS: Dict[str, Callable] = {}
 
 register_model = create_register_decorator(ARCHITECTURES)
 register_loss = create_register_decorator(LOSSES)
+register_metric = create_register_decorator(METRICS)
+register_callback = create_register_decorator(CALLBACKS)
 register_lr_scheduler = create_register_decorator(LR_SCHEDULERS)
 register_optimizer = create_register_decorator(OPTIMIZERS)
+register_sg_logger = create_register_decorator(SG_LOGGERS)

@@ -1,5 +1,5 @@
 """models.get — the port's model zoo entry point (counterpart of
-``super_gradients_tpu/models/model_factory.py``, without checkpoint loading).
+``super_gradients_tpu/models/model_factory.py``).
 
 Each registered architecture is a builder returning a :class:`ModelSpec`; ``get``
 initializes the network from a seeded ``torch.Generator`` on the CPU, moves it to
@@ -83,11 +83,14 @@ def get(
     """Instantiate a model from the zoo with random weights made from ``seed``.
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU is visible; pass
-    ``device="cpu"`` to run on the CPU. Checkpoints and pretrained weights are
-    not ported yet and raise.
+    ``device="cpu"`` to run on the CPU. ``checkpoint_path`` loads a ``.pth`` file
+    of the original super-gradients layout (``ema_net`` preferred over ``net``, as
+    ``Trainer.train`` writes them) through ``load_state_dict``. ``pretrained_weights``
+    raises: no weights are in the repository.
     """
-    if checkpoint_path is not None or pretrained_weights is not None:
-        raise NotImplementedError("loading checkpoints / pretrained weights is not ported to super_gradients_tpu_torch yet")
+    if pretrained_weights is not None:
+        raise NotImplementedError("pretrained_weights: no pretrained weights are in the repository; "
+                                  "pass checkpoint_path= to a .pth file (ROADMAP.md queue 1, 'Predict-path leftovers')")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"models.get(..., device='{device}'): CUDA is not available; pass device='cpu' to run on the CPU")
@@ -96,7 +99,12 @@ def get(
     generator = torch.Generator().manual_seed(seed)
     spec.net.reset_parameters(generator)
     _calibrate_batch_norm(spec.net, generator, (2, 3, *spec.input_hw))
-    return DetectionModel(
+    model = DetectionModel(
         name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
         processing=spec.processing, class_names=spec.class_names, device=device,
     )
+    if checkpoint_path is not None:
+        from super_gradients_tpu_torch.training.checkpoints import load_checkpoint_into_model
+
+        load_checkpoint_into_model(model, checkpoint_path)
+    return model

@@ -58,3 +58,18 @@ class ModelEMA:
         sd = self.net.state_dict()
         sd.update(zip(self.names, self.tensors))
         return sd
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
+        """Set the averaged tensors from a state_dict of :meth:`state_dict`'s form."""
+        missing = [n for n in self.names if n not in state_dict]
+        if missing:
+            raise KeyError(f"EMA state_dict lacks {missing[:5]}")
+        for name, t in zip(self.names, self.tensors):
+            t.copy_(state_dict[name])
+
+    @torch.no_grad()
+    def reset_to_live(self) -> None:
+        """Restart the average from the network's current tensors."""
+        for t, live in zip(self.tensors, self._live):
+            t.copy_(live)

@@ -1,31 +1,50 @@
-"""Trainer.train (counterpart of the ``train()`` core of
-``super_gradients_tpu/training/trainer.py``).
+"""Trainer (counterpart of ``super_gradients_tpu/training/trainer.py``).
 
-``Trainer(...).train(model, training_params, train_loader)`` trains a copy of
-``model.net`` on the model's device (the GPU unless the caller passes a CPU
-model) and hands the EMA weights (or the live ones without EMA) back through
-``model.load_state_dict``. Each batch is one micro-step of :class:`TrainStep`:
-forward under the bf16 policy, PPYoloELoss (or any registered loss) in fp32,
-backward; every ``batch_accumulate`` micro-steps the mean gradient is clipped,
-the LR set from the schedule and the optimizer and EMA stepped, as optax
-``MultiSteps`` does.
+``Trainer(...).train(model, training_params, train_loader, valid_loader, test_loaders,
+additional_callbacks)`` trains a copy of ``model.net`` on the model's device (the
+GPU unless the caller passes a CPU model) and hands the EMA weights (or the live
+ones without EMA) back through ``model.load_state_dict``. Each batch is one
+micro-step of :class:`TrainStep`: forward under the bf16 policy, PPYoloELoss (or
+any registered loss) in fp32, backward; every ``batch_accumulate`` micro-steps
+the mean gradient is clipped, the LR set from the schedule and the optimizer and
+EMA stepped, as optax ``MultiSteps`` does.
 
-Validation, test loaders, metrics, callbacks, loggers, checkpoints, resume,
-precise BN, QAT and KD are not ported yet: a training parameter or argument that
-asks for one of them raises ``NotImplementedError`` naming its ROADMAP item.
-Since ``save_model`` defaults to True, callers pass ``save_model=False``.
+Around the steps, as in the JAX trainer: validation every ``run_validation_freq``
+epochs and at the last one (EMA weights, eval-mode BN, the training's bf16 policy,
+outputs cast to fp32 before the loss and the metrics; ``DetectionMetrics`` runs
+``batched_nms`` on the device, kernel K1 on a GPU, and matches on the host),
+``test_loaders``, ``train_metrics_list``, phase callbacks, the experiment logger,
+``.pth`` checkpoints (``ckpt_latest``, ``ckpt_best``, ``ckpt_epoch_N``,
+``average_model``) in ``<ckpt_root_dir>/<experiment>/RUN_<ts>/`` with
+``recipe.json``, and ``resume``. ``evaluate`` and ``test`` run the eval loop alone.
+
+Precise BN, QAT and KD are not ported yet: a training parameter that asks for one
+of them raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 import logging
-from typing import Callable, Dict, List, Optional
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from super_gradients_tpu_torch.common.environment import (
+    generate_run_id,
+    get_checkpoints_dir_path,
+    get_latest_run_id,
+    is_primary_process,
+)
+from super_gradients_tpu_torch.common.sg_loggers import get_sg_logger
+from super_gradients_tpu_torch.training import checkpoints as ckpt_utils
+from super_gradients_tpu_torch.training.callbacks import Callback, CallbackHandler, PhaseContext, resolve_callback
 from super_gradients_tpu_torch.training.ema import ModelEMA, make_decay_fn
 from super_gradients_tpu_torch.training.losses import get_loss
+from super_gradients_tpu_torch.training.metrics import MetricCollection, get_metric, to_host
 from super_gradients_tpu_torch.training.mixed_precision import autocast, to_f32
 from super_gradients_tpu_torch.training.optimizers import build_optimizer
 from super_gradients_tpu_torch.training.schedules import build_lr_schedule
@@ -86,17 +105,7 @@ DEFAULT_TRAINING_PARAMS: Dict = {
     "_convert_": "all",
 }
 
-_VALIDATION = "ROADMAP.md queue 1, 'Validation with DetectionMetrics'"
-_CHECKPOINTS = "ROADMAP.md queue 1, 'Checkpoints and resume'"
 _LATER = "ROADMAP.md queue 1, 'Breadth' and 'Deployment and scale-out'"
-
-# settings that only act through a feature not ported yet; read so that the
-# silent-drop guard counts them, and inert while that feature is off
-_INERT_UNTIL_PORTED = (
-    "ckpt_name", "ckpt_best_name", "save_ckpt_epoch_list", "load_opt_params", "average_best_models",
-    "metric_to_watch", "greater_metric_to_watch_is_better", "run_validation_freq", "run_test_freq",
-    "max_valid_batches", "precise_bn_batch_size", "sg_logger_params",
-)
 
 
 class _TrackedParams(dict):
@@ -117,34 +126,33 @@ class _TrackedParams(dict):
         self._read_keys.add(k)
         return super().get(k, default)
 
+    def setdefault(self, k, default=None):
+        self._read_keys.add(k)
+        return super().setdefault(k, default)
+
     def unread_keys(self) -> List[str]:
         return sorted(set(self) - self._read_keys - self._IGNORED)
 
 
-def _refuse_unported(tp: _TrackedParams, valid_loader, test_loaders, additional_callbacks) -> None:
-    asks = [
-        ("valid_loader", valid_loader is not None, _VALIDATION),
-        ("test_loaders", bool(test_loaders), _VALIDATION),
-        ("additional_callbacks", bool(additional_callbacks), _VALIDATION),
-        ("valid_metrics_list", bool(tp.get("valid_metrics_list")), _VALIDATION),
-        ("train_metrics_list", bool(tp.get("train_metrics_list")), _VALIDATION),
-        ("phase_callbacks", bool(tp.get("phase_callbacks")), _VALIDATION),
-        ("sg_logger", tp.get("sg_logger") not in (None, "base_sg_logger"), _VALIDATION),
-        ("save_model", bool(tp.get("save_model")), _CHECKPOINTS),
-        ("resume", bool(tp.get("resume")), _CHECKPOINTS),
-        ("run_id", tp.get("run_id") is not None, _CHECKPOINTS),
-        ("resume_path", tp.get("resume_path") is not None, _CHECKPOINTS),
-        ("precise_bn", bool(tp.get("precise_bn")), _LATER),
-        ("qat_params", bool((tp.get("qat_params") or {}).get("enabled")), _LATER),
-    ]
-    for name, asked, item in asks:
+def _refuse_unported(tp: _TrackedParams) -> None:
+    for name, asked in (("precise_bn", bool(tp.get("precise_bn"))),
+                        ("qat_params", bool((tp.get("qat_params") or {}).get("enabled")))):
         if asked:
             raise NotImplementedError(
-                f"Trainer.train: `{name}` asks for a feature that super_gradients_tpu_torch does not have yet ({item})"
-                + ("; pass save_model=False" if name == "save_model" else "")
-            )
-    for key in _INERT_UNTIL_PORTED:
-        tp.get(key)
+                f"Trainer.train: `{name}` asks for a feature that super_gradients_tpu_torch does not have yet ({_LATER})")
+
+
+def _metrics_view(out):
+    """Metrics evaluate the student of a KD composite output."""
+    return out.student_output if hasattr(out, "student_output") else out
+
+
+def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device):
+    """A host batch onto the device: pinned copies ``non_blocking``, images channels_last on a GPU."""
+    images = images.to(device, non_blocking=True)
+    if device.type == "cuda":
+        images = images.contiguous(memory_format=torch.channels_last)
+    return images, targets.to(device, non_blocking=True)
 
 
 class TrainStep:
@@ -198,11 +206,13 @@ class TrainStep:
         if st.ema is not None:
             st.ema.update(self.ema_decay(opt_step))
 
-    def __call__(self, images: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-        loss, _ = self.loss(self.forward(images), targets)
+    def run(self, images: torch.Tensor, targets: torch.Tensor):
+        """One micro-step; returns the loss (detached) and the fp32 outputs."""
+        outputs = self.forward(images)
+        loss, _ = self.loss(outputs, targets)
         self.backward(loss)
         self.update()
-        return loss.detach()
+        return loss.detach(), outputs
 
 
 def _clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -217,14 +227,21 @@ def _clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 
 
 class Trainer:
-    """Counterpart of the JAX ``Trainer`` (``train()`` only so far)."""
+    """Counterpart of the JAX ``Trainer``: ``train``, ``evaluate`` and ``test``."""
 
     def __init__(self, experiment_name: str, ckpt_root_dir: Optional[str] = None):
         self.experiment_name = experiment_name
-        self.ckpt_root_dir = ckpt_root_dir  # read once checkpoints are ported
+        self.ckpt_root_dir = ckpt_root_dir
+        self.run_id = generate_run_id()
+        self.ckpt_dir: Optional[str] = None
+        self.best_metric: Optional[float] = None
         self.train_state: Optional[TrainState] = None
         self.train_loss_history: List[float] = []
+        self.valid_metrics_history: List[Dict[str, float]] = []
+        self.test_metrics_history: List[Dict[str, Dict[str, float]]] = []
+        self.train_metrics_history: List[Dict[str, float]] = []
         self.unconsumed_training_params: List[str] = []
+        self.sg_logger = None
 
     def prepare(self, model, training_params: Dict, steps_per_epoch: int) -> TrainStep:
         """The :class:`TrainStep` that ``train()`` runs for these parameters, over a
@@ -292,44 +309,350 @@ class Trainer:
         tp.update(training_params or {})
         return tp
 
-    def train(self, model, training_params: Dict, train_loader, valid_loader=None, test_loaders=None,
-              additional_callbacks=None):
+    # ------------------------------------------------------------------ train
+
+    def train(self, model, training_params: Dict, train_loader, valid_loader=None,
+              test_loaders: Optional[Dict[str, Any]] = None, additional_callbacks: Optional[Sequence[Callback]] = None):
         """Train ``model`` for ``max_epochs`` over ``train_loader`` (batches of
         ``(images [B, 3, H, W], targets [B, max_boxes, 5])``) and return it with the
-        trained weights; per-epoch mean losses go to ``train_loss_history``."""
+        trained weights. Per-epoch mean losses go to ``train_loss_history``, the
+        validation results (with the validation ``Loss``) to ``valid_metrics_history``."""
         tp = self._tracked_params(training_params)
-        _refuse_unported(tp, valid_loader, test_loaders, additional_callbacks)
+        self.training_params = tp
+        _refuse_unported(tp)
         if tp.get("cross_replica_bn"):
             logger.info("cross_replica_bn=True: one device, BN already reduces over the whole batch (no-op)")
         tp.get("seed")  # the YOLO-NAS train step draws no random numbers
-        silent = bool(tp.get("silent_mode"))
         max_epochs = int(tp["max_epochs"])
-        max_train_batches = tp.get("max_train_batches")
+        batch_accumulate = int(tp.get("batch_accumulate") or 1)
 
         step = self.prepare(model, tp, len(train_loader))
+        state = step.state
         device = model.device
-        for epoch in range(max_epochs):
-            if hasattr(train_loader, "set_epoch"):
-                train_loader.set_epoch(epoch)
-            loss_sum, count = 0.0, 0
-            for batch_idx, (images, targets) in enumerate(train_loader):
-                if max_train_batches and batch_idx >= max_train_batches:
+
+        # ---- resume ----------------------------------------------------
+        start_epoch = 0
+        self.ckpt_dir = get_checkpoints_dir_path(self.experiment_name, self.ckpt_root_dir, self.run_id)
+        if tp.get("resume") or tp.get("run_id") or tp.get("resume_path"):
+            start_epoch = self._try_resume(tp, state)
+        primary = is_primary_process()
+        if primary:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
+            self._persist_recipe(tp, model)
+
+        train_metrics = MetricCollection([get_metric(m) for m in (tp.get("train_metrics_list") or [])])
+        has_train_metrics = bool(train_metrics.metrics)
+        valid_metrics = MetricCollection([get_metric(m) for m in (tp.get("valid_metrics_list") or [])])
+
+        # ---- callbacks / context ----------------------------------------
+        callbacks = [resolve_callback(c) for c in list(tp.get("phase_callbacks") or []) + list(additional_callbacks or [])]
+        handler = CallbackHandler(callbacks)
+        context = PhaseContext(trainer=self, model=model, training_params=tp, experiment_name=self.experiment_name,
+                               ckpt_dir=self.ckpt_dir, train_loader=train_loader, valid_loader=valid_loader,
+                               criterion=step.criterion)
+
+        # cadence and naming knobs, read up front so that the silent-drop guard counts them
+        run_test_freq = int(tp.get("run_test_freq") or 1)
+        run_validation_freq = int(tp.get("run_validation_freq") or 1)
+        tp.get("precise_bn_batch_size")  # acts through precise_bn only
+        save_model = bool(tp.get("save_model", True))
+        ckpt_name = tp.get("ckpt_name", "ckpt_latest")
+        ckpt_best_name = tp.get("ckpt_best_name", "ckpt_best")
+        save_ckpt_epoch_list = list(tp.get("save_ckpt_epoch_list") or [])
+        tp.get("load_opt_params", True)  # acted on inside _try_resume
+        metric_to_watch = tp.get("metric_to_watch", "Accuracy")
+        best_tracker = ckpt_utils.BestCheckpointTracker(bool(tp.get("greater_metric_to_watch_is_better", True)))
+        averager = (ckpt_utils.AverageBestModels(greater_is_better=best_tracker.greater_is_better)
+                    if tp.get("average_best_models") else None)
+        silent = bool(tp.get("silent_mode")) or not primary
+
+        # ---- experiment logger -----------------------------------------
+        sg_logger_params = dict(tp.get("sg_logger_params") or {})
+        sg_logger_params.setdefault("experiment_name", self.experiment_name)
+        sg_logger_params.setdefault("checkpoints_dir_path", self.ckpt_dir)
+        self.sg_logger = get_sg_logger(tp.get("sg_logger", "base_sg_logger"), **sg_logger_params)
+        self.sg_logger.add_config("training_params", {k: v for k, v in tp.items() if not callable(v)})
+        context.update_context(sg_logger=self.sg_logger)
+
+        handler.on_training_start(context)
+        max_train_batches = tp.get("max_train_batches")
+        max_valid_batches = tp.get("max_valid_batches")
+        # host-sync cadence: the running loss and LR reach the context every N batches only
+        sync_every = int(tp.get("train_logging_frequency") or 50)
+        eval_net = None  # built at the first validation or test
+
+        try:
+            for epoch in range(start_epoch, max_epochs):
+                context.update_context(epoch=epoch)
+                if context.stop_training:
                     break
-                images = images.to(device, non_blocking=True)
-                if device.type == "cuda":
-                    images = images.contiguous(memory_format=torch.channels_last)
-                loss_sum = loss_sum + step(images, targets.to(device, non_blocking=True))
-                count += 1
-            self.train_loss_history.append(float(loss_sum) / max(count, 1))
-            if not silent:
-                logger.info(f"Epoch {epoch + 1}/{max_epochs} | loss {self.train_loss_history[-1]:.4f}")
+                if hasattr(train_loader, "set_epoch"):
+                    train_loader.set_epoch(epoch)
+                handler.on_train_loader_start(context)
+                # a stage-switch callback may have asked for another criterion
+                if context._criterion_updates:
+                    if not isinstance(tp.get("loss"), str):
+                        logger.warning("criterion update requested but loss is an instance: ignored")
+                    else:
+                        new_cp = {**(tp.get("criterion_params") or {}), **context._criterion_updates}
+                        tp["criterion_params"] = new_cp
+                        step.criterion = get_loss(tp.get("loss"), new_cp)
+                        context.update_context(criterion=step.criterion)
+                        logger.info(f"Criterion rebuilt with {context._criterion_updates} (epoch {epoch})")
+                    context._criterion_updates = {}
+                t0 = time.time()
+                loss_sum, loss_count, lr = 0.0, 0, None
+                train_mstates = train_metrics.init()
+                for batch_idx, batch in enumerate(train_loader):
+                    if max_train_batches and batch_idx >= max_train_batches:
+                        break
+                    context.update_context(batch_idx=batch_idx, step=state.step, train_batch=batch)
+                    handler.on_train_batch_start(context)
+                    images, targets = _to_device(batch[0], batch[1], device)
+                    loss, outputs = step.run(images, targets)
+                    lr = step.lr_schedule((state.step - 1) // batch_accumulate)
+                    if has_train_metrics:
+                        train_mstates = self._update_metrics(train_metrics, train_mstates, _metrics_view(outputs),
+                                                             targets, batch[1])
+                    del outputs
+                    loss_sum = loss_sum + loss
+                    loss_count += 1
+                    context.step_metrics = {"loss": loss, "lr": lr}  # the loss a device scalar: float() syncs
+                    if loss_count % sync_every == 0:
+                        context.update_context(loss_avg=float(loss_sum) / loss_count, lr=lr)
+                    handler.on_train_batch_end(context)
+                epoch_time = time.time() - t0
+                train_loss = float(loss_sum) / max(loss_count, 1)
+                self.train_loss_history.append(train_loss)
+                context.update_context(loss_avg=train_loss, lr=lr)
+                context.metrics_dict.update({"train_loss": train_loss})
+                train_results = train_metrics.compute(train_mstates) if has_train_metrics else {}
+                if has_train_metrics:
+                    self.train_metrics_history.append(train_results)
+                context.metrics_dict.update({f"Train_{k}": v for k, v in train_results.items()})
+                context.update_context(train_state=state)
+                handler.on_train_loader_end(context)
+
+                # ---------- validation ----------
+                should_validate = valid_loader is not None and (
+                    (epoch + 1) % run_validation_freq == 0 or epoch == max_epochs - 1)
+                valid_results: Dict[str, float] = {}
+                if should_validate:
+                    handler.on_validation_loader_start(context)
+                    eval_net = self._refresh_eval_net(eval_net, state)
+                    context.update_context(eval_net=eval_net)
+                    valid_results = self._run_eval_loop(eval_net, step.criterion, valid_metrics, valid_loader, device,
+                                                        step.mixed_precision, max_valid_batches, handler, context)
+                    self.valid_metrics_history.append(valid_results)
+                    context.update_context(valid_metrics=valid_results)
+                    handler.on_validation_loader_end(context)
+
+                # ---------- test loaders ----------
+                test_results: Dict[str, Dict[str, float]] = {}
+                should_test = test_loaders and ((epoch + 1) % run_test_freq == 0 or epoch == max_epochs - 1)
+                if should_test:
+                    eval_net = self._refresh_eval_net(eval_net, state)
+                    for tname, tloader in test_loaders.items():
+                        res = self._run_eval_loop(eval_net, step.criterion, valid_metrics, tloader, device,
+                                                  step.mixed_precision, max_valid_batches, None, context)
+                        test_results[tname] = res
+                        context.metrics_dict.update({f"{tname}:{k}": v for k, v in res.items()})
+                    self.test_metrics_history.append(test_results)
+                    handler.on_test_loader_end(context)
+
+                if not silent:
+                    msg = f"Epoch {epoch + 1}/{max_epochs} | loss {train_loss:.4f} | {epoch_time:.1f}s"
+                    if valid_results:
+                        msg += " | " + " ".join(f"{k}={v:.4f}" for k, v in valid_results.items())
+                    logger.info(msg)
+
+                self.sg_logger.add_scalar("Train/loss", train_loss, epoch)
+                for k, v in train_results.items():
+                    self.sg_logger.add_scalar(f"Train/{k}", v, epoch)
+                if lr is not None:
+                    self.sg_logger.add_scalar("Train/lr", lr, epoch)
+                self.sg_logger.add_scalar("Train/epoch_time_s", epoch_time, epoch)
+                for k, v in valid_results.items():
+                    self.sg_logger.add_scalar(f"Valid/{k}", v, epoch)
+                for tname, res in test_results.items():
+                    for k, v in res.items():
+                        self.sg_logger.add_scalar(f"Test_{tname}/{k}", v, epoch)
+                self.sg_logger.flush()
+
+                # ---------- checkpoints ----------
+                if save_model and primary:
+                    self._save_epoch_checkpoints(state, epoch, valid_results, metric_to_watch, best_tracker, averager,
+                                                 ckpt_name, ckpt_best_name, save_ckpt_epoch_list)
+        except KeyboardInterrupt:
+            logger.info("Ctrl-C: training stops; the checkpoints written so far are kept")
+
+        handler.on_training_end(context)
+        self.sg_logger.close()
 
         self.unconsumed_training_params = tp.unread_keys()
         if self.unconsumed_training_params:
             logger.warning(f"training_params keys never consumed (silent-drop guard): {self.unconsumed_training_params}")
 
-        state = step.state
         state.net.eval()
-        model.load_state_dict(state.ema.state_dict() if state.ema is not None else state.net.state_dict())
+        model.load_state_dict(self._eval_state_dict(state))
         self.train_state = state
         return model
+
+    # ------------------------------------------------------------- eval loop
+
+    @staticmethod
+    def _update_metrics(metrics: MetricCollection, mstates, outputs, targets: torch.Tensor, host_targets):
+        """Device metrics on the outputs; host metrics on their device reduction,
+        which goes to the host once."""
+        with torch.no_grad():
+            mstates = metrics.update_device(mstates, outputs, targets)
+            aux = metrics.preprocess_device(outputs, targets)
+        if metrics.has_host_metrics():
+            mstates = metrics.update_host(mstates, to_host(aux), to_host(host_targets))
+        return mstates
+
+    def _run_eval_loop(self, net, criterion, metrics: MetricCollection, loader, device, mixed_precision: bool,
+                       max_batches, handler, context) -> Dict[str, float]:
+        """One pass over ``loader``: forward in eval mode under the bf16 policy when
+        ``mixed_precision``, outputs cast to fp32, metrics, and the mean ``Loss``
+        when there is a criterion."""
+        mstates = metrics.init()
+        loss_sum, count = 0.0, 0
+        for vidx, batch in enumerate(loader):
+            if max_batches and vidx >= max_batches:
+                break
+            if context is not None:
+                context.update_context(batch_idx=vidx, valid_batch=batch)
+            images, targets = _to_device(batch[0], batch[1], device)
+            with torch.inference_mode():
+                with autocast(device, mixed_precision):
+                    outputs = net(images)
+                outputs = to_f32(outputs)
+                if criterion is not None:
+                    loss_sum = loss_sum + criterion(outputs, targets)[0]
+                mstates = self._update_metrics(metrics, mstates, _metrics_view(outputs), targets, batch[1])
+            count += 1
+            if handler is not None:
+                handler.on_validation_batch_end(context)
+        if count == 0:
+            logger.warning("eval loop: the data loader yielded 0 batches; metrics are empty")
+        results = metrics.compute(mstates)
+        if criterion is not None:
+            results["Loss"] = float(loss_sum) / max(count, 1)
+        return results
+
+    @staticmethod
+    def _eval_state_dict(state: TrainState) -> Dict[str, torch.Tensor]:
+        return state.ema.state_dict() if state.ema is not None else state.net.state_dict()
+
+    def _refresh_eval_net(self, eval_net, state: TrainState):
+        """The network validation runs: a copy of the trained one in eval mode, with
+        the EMA weights (or the live ones without EMA) loaded anew each time."""
+        if eval_net is None:
+            eval_net = copy.deepcopy(state.net)
+            for p in eval_net.parameters():
+                p.grad = None
+                p.requires_grad_(False)
+        eval_net.load_state_dict(self._eval_state_dict(state))
+        return eval_net.eval()
+
+    # ------------------------------------------------------------ checkpoints
+
+    def _save_epoch_checkpoints(self, state: TrainState, epoch: int, valid_results: Dict[str, float], metric_to_watch,
+                                best_tracker, averager, ckpt_name="ckpt_latest", ckpt_best_name="ckpt_best",
+                                save_ckpt_epoch_list=()):
+        payload = ckpt_utils.serialize({
+            **state.state_dict(),
+            "epoch": epoch,
+            "metrics": {k: float(v) for k, v in valid_results.items()},
+            "experiment": self.experiment_name,
+            "ckpt_version": ckpt_utils.CKPT_VERSION,
+        })
+        ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_name, payload)
+        if epoch in (save_ckpt_epoch_list or ()):
+            ckpt_utils.save_checkpoint(self.ckpt_dir, f"ckpt_epoch_{epoch}", payload)
+
+        watched = valid_results.get(metric_to_watch)
+        if watched is not None:
+            if averager is not None:
+                weights = self._eval_state_dict(state)
+                averager.update(watched, {name: weights[name] for name, _ in state.net.named_parameters()})
+            if best_tracker.is_improvement(watched):
+                self.best_metric = watched
+                ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_best_name, payload)
+                logger.info(f"New best {metric_to_watch}={watched:.4f} -> {ckpt_best_name}")
+        if averager is not None and averager.snapshots:
+            # the averaged parameters with the LIVE BN statistics, as the JAX trainer pairs them
+            net = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+            net.update(averager.averaged_params())
+            ckpt_utils.save_checkpoint(self.ckpt_dir, "average_model", {"net": net})
+
+    def _try_resume(self, tp, state: TrainState) -> int:
+        """Restore ``state`` from the run's checkpoint; returns the epoch to start at."""
+        resume_path = tp.get("resume_path")
+        if resume_path:
+            ckpt_dir, name = os.path.split(os.path.abspath(resume_path))
+        else:
+            run_id = tp.get("run_id") or get_latest_run_id(self.experiment_name, self.ckpt_root_dir)
+            if run_id is None:
+                logger.warning("resume=True but no previous run found: starting fresh")
+                return 0
+            self.run_id = run_id  # continue in the same run directory
+            self.ckpt_dir = get_checkpoints_dir_path(self.experiment_name, self.ckpt_root_dir, run_id)
+            ckpt_dir, name = self.ckpt_dir, tp.get("ckpt_name", "ckpt_latest")
+        if not ckpt_utils.checkpoint_exists(ckpt_dir, name):
+            logger.warning(f"resume checkpoint {ckpt_utils.checkpoint_path(ckpt_dir, name)} missing: starting fresh")
+            return 0
+        # on the CPU: load_state_dict copies the tensors to their device, and the optimizer
+        # keeps its step counters on the CPU, as a fresh one does
+        ckpt = ckpt_utils.load_checkpoint(ckpt_dir, name, map_location="cpu")
+        has_opt = int(ckpt.get("ckpt_version", 1)) >= 2 and ckpt.get("optimizer_state_dict") is not None
+        restore_opt = has_opt and bool(tp.get("load_opt_params", True))
+        state.load_state_dict(ckpt, load_optimizer=restore_opt)
+        if not restore_opt:
+            if not tp.get("load_opt_params", True):
+                logger.info("load_opt_params=False: momentum and moments start fresh")
+            else:
+                logger.warning("the checkpoint has no optimizer state: momentum and moments start fresh")
+        start_epoch = int(ckpt.get("epoch", -1)) + 1
+        logger.info(f"Resumed from {ckpt_utils.checkpoint_path(ckpt_dir, name)} at epoch {start_epoch}")
+        return start_epoch
+
+    def _persist_recipe(self, tp: Dict, model) -> None:
+        """Write the resolved training parameters next to the checkpoints (``recipe.json``)."""
+
+        def _clean(obj):
+            if isinstance(obj, dict):
+                return {k: _clean(v) for k, v in obj.items() if not callable(v)}
+            if isinstance(obj, (list, tuple)):
+                return [_clean(v) for v in obj if not callable(v)]
+            if isinstance(obj, (str, int, float, bool)) or obj is None:
+                return obj
+            return repr(obj)
+
+        recipe = {
+            "experiment_name": self.experiment_name,
+            "architecture": getattr(model, "name", None),
+            "num_classes": getattr(model, "num_classes", None),
+            "training_hyperparams": tp,
+        }
+        try:
+            with open(os.path.join(self.ckpt_dir, "recipe.json"), "w") as f:
+                json.dump(_clean(recipe), f, indent=2)
+        except Exception as e:  # never fail training over recipe serialization
+            logger.warning(f"Could not persist recipe.json: {e}")
+
+    # ------------------------------------------------------------- evaluation
+
+    def evaluate(self, model, data_loader, training_params: Optional[Dict] = None, metrics_list=None) -> Dict[str, float]:
+        """One pass of ``model.net`` (its own weights, eval mode, fp32) over
+        ``data_loader``: the metrics of ``metrics_list`` (or of the parameters'
+        ``valid_metrics_list``), and ``Loss`` when the parameters name a loss."""
+        tp = copy.deepcopy(DEFAULT_TRAINING_PARAMS)
+        tp.update(training_params or {})
+        metrics = MetricCollection([get_metric(m) for m in (metrics_list or tp.get("valid_metrics_list") or [])])
+        criterion = get_loss(tp.get("loss"), tp.get("criterion_params")) if tp.get("loss") else None
+        return self._run_eval_loop(model.net.eval(), criterion, metrics, data_loader, model.device, False, None, None, None)
+
+    def test(self, model, test_loader, test_metrics_list=None, loss=None) -> Dict[str, float]:
+        return self.evaluate(model, test_loader, {"loss": loss} if loss else {}, metrics_list=test_metrics_list)

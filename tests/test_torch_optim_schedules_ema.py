@@ -13,6 +13,7 @@ also ``atol=1e-8`` (1e-7 of the initial LR: the JAX package evaluates them in
 fp32, the port in Python floats, and the cosine's ``1 + cos`` cancels near the end).
 """
 
+import os
 import types
 
 import jax
@@ -26,7 +27,7 @@ from torch import nn
 from super_gradients_tpu.training import ema as jax_ema
 from super_gradients_tpu.training import optimizers as jax_optimizers
 from super_gradients_tpu.training import schedules as jax_schedules
-from super_gradients_tpu_torch.training import ema, schedules, trainer
+from super_gradients_tpu_torch.training import callbacks, ema, schedules, trainer
 from super_gradients_tpu_torch.training.optimizers import build_optimizer
 
 torch.set_num_threads(2)
@@ -239,19 +240,111 @@ def _model_stub():
     return types.SimpleNamespace(net=Tiny(_values(1)), device=torch.device("cpu"))
 
 
-@pytest.mark.parametrize("override,arg", [
-    (dict(), None), (dict(save_model=False, resume=True), None), (dict(save_model=False, run_id="x"), None),
-    (dict(save_model=False, valid_metrics_list=["DetectionMetrics"]), None),
-    (dict(save_model=False, train_metrics_list=["Accuracy"]), None),
-    (dict(save_model=False, phase_callbacks=["x"]), None), (dict(save_model=False, sg_logger="wandb_sg_logger"), None),
-    (dict(save_model=False, precise_bn=True), None), (dict(save_model=False, qat_params={"enabled": True}), None),
-    (dict(save_model=False), "valid_loader"), (dict(save_model=False), "test_loaders"),
-    (dict(save_model=False), "additional_callbacks"),
+@pytest.mark.parametrize("override,arg,error", [
+    (dict(precise_bn=True), None, NotImplementedError),
+    (dict(qat_params={"enabled": True}), None, NotImplementedError),
+    (dict(sg_logger="wandb_sg_logger"), None, NotImplementedError),
+    (dict(sg_logger="clearml_sg_logger"), None, NotImplementedError),
+    (dict(sg_logger="dagshub_sg_logger"), None, NotImplementedError),
+    (dict(sg_logger="deci_platform_sg_logger"), None, NotImplementedError),
+    (dict(sg_logger_params={"monitor_system": True}), None, NotImplementedError),
+    (dict(train_metrics_list=["Accuracy"]), None, KeyError),
+    (dict(valid_metrics_list=[{"IoU": {}}]), None, KeyError),
+    (dict(phase_callbacks=["DetectionVisualizationCallback"]), None, KeyError),
+    (dict(phase_callbacks=[{"YoloXTrainingStageSwitchCallback": {}}]), None, KeyError),
+    (dict(), "additional_callbacks", KeyError),
+    (dict(phase_callbacks=["x"]), None, KeyError),
 ])
-def test_unported_training_params_raise(override, arg):
-    kwargs = {arg: [object()]} if arg else {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.Trainer("t").train(_model_stub(), dict(loss=lambda o, t: None, **override), [], **kwargs)
+def test_unported_training_params_raise(override, arg, error, tmp_path):
+    """What stays unported raises and names its ROADMAP item (an unknown callback
+    name raises KeyError listing the registered ones)."""
+    kwargs = {arg: ["ModelConversionCheckCallback"]} if arg else {}
+    match = "Unknown callback" if override.get("phase_callbacks") == ["x"] else "ROADMAP"
+    with pytest.raises(error, match=match):
+        trainer.Trainer("t", ckpt_root_dir=str(tmp_path)).train(
+            _model_stub(), dict(loss=lambda o, t: None, save_model=False, **override), [], **kwargs)
+
+
+class _Recorder(callbacks.Callback):
+    def __init__(self):
+        self.events = []
+
+    def on_validation_loader_end(self, ctx):
+        self.events.append(("valid", ctx.epoch))
+
+    def on_test_loader_end(self, ctx):
+        self.events.append(("test", ctx.epoch))
+
+
+def _tiny_batches():
+    rng = np.random.RandomState(2)
+    return [(torch.from_numpy(rng.randn(2, 2).astype(np.float32)), torch.zeros(2, 5)) for _ in range(2)]
+
+
+class _TinyLinear(nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.heads = nn.Linear(2, 5)
+
+    def forward(self, x):
+        return self.heads(x)
+
+
+@pytest.mark.parametrize("case", ["save_model_default", "resume", "run_id", "valid_loader", "test_loaders",
+                                  "additional_callbacks", "valid_metrics_list"])
+def test_ported_training_params_run(case, tmp_path):
+    """What was refused before validation and checkpoints were ported now runs."""
+    root = str(tmp_path)
+    model = types.SimpleNamespace(net=_TinyLinear(), device=torch.device("cpu"), load_state_dict=lambda sd: None)
+    params = dict(loss=lambda out, t: ((out - t).pow(2).mean(), {}), max_epochs=2, initial_lr=0.1)
+    recorder = _Recorder()
+    kwargs = {}
+    if case == "resume":
+        trainer.Trainer("t", ckpt_root_dir=root).train(model, dict(params, max_epochs=1), _tiny_batches())
+        params.update(resume=True)
+    elif case == "run_id":
+        first = trainer.Trainer("t", ckpt_root_dir=root)
+        first.train(model, dict(params, max_epochs=1), _tiny_batches())
+        params.update(run_id=first.run_id)
+    elif case in ("valid_loader", "valid_metrics_list"):
+        kwargs["valid_loader"] = _tiny_batches()
+        if case == "valid_metrics_list":
+            params.update(loss=lambda out, t: (out.pred_scores.mean(), {}),
+                          valid_metrics_list=[{"DetectionMetrics": {"num_cls": 1}}], metric_to_watch="mAP@0.50:0.95")
+            model.net = _TinyDetector()
+            kwargs["valid_loader"] = [(torch.zeros(2, 2), torch.tensor([[[0, 1, 1, 5, 5]]] * 2, dtype=torch.float32))]
+    elif case == "test_loaders":
+        kwargs["test_loaders"] = {"a": _tiny_batches()}
+    elif case == "additional_callbacks":
+        kwargs.update(additional_callbacks=[recorder, "TimerCallback", {"EarlyStop": {"monitor": "Loss"}}],
+                      valid_loader=_tiny_batches())
+    t = trainer.Trainer("t", ckpt_root_dir=root)
+    t.train(model, params, _tiny_batches(), **kwargs)
+    files = set(os.listdir(t.ckpt_dir))
+    assert {"ckpt_latest.pth", "recipe.json", "events.jsonl"} <= files
+    if case in ("resume", "run_id"):
+        assert t.train_state.step == 4 and len(t.train_loss_history) == 1
+    if case in ("valid_loader", "valid_metrics_list", "additional_callbacks"):
+        assert len(t.valid_metrics_history) == 2 and "Loss" in t.valid_metrics_history[0]
+    if case == "valid_metrics_list":
+        assert t.valid_metrics_history[-1]["mAP@0.50:0.95"] == 1.0 and "ckpt_best.pth" in files
+    if case == "test_loaders":
+        assert len(t.test_metrics_history) == 2 and "Loss" in t.test_metrics_history[0]["a"]
+    if case == "additional_callbacks":
+        assert recorder.events == [("valid", 0), ("valid", 1)]
+
+
+class _TinyDetector(nn.Module):
+    """Emits one box [1, 1, 5, 5] of class 0 at score sigmoid(w), whatever the input."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = nn.Parameter(torch.ones(1))
+
+    def forward(self, x):
+        b = x.shape[0]
+        boxes = torch.tensor([1.0, 1.0, 5.0, 5.0]).expand(b, 1, 4)
+        return types.SimpleNamespace(pred_bboxes=boxes, pred_scores=torch.sigmoid(self.w).expand(b, 1, 1))
 
 
 def test_training_runs_with_jax_blocked():
@@ -269,18 +362,23 @@ def test_training_runs_with_jax_blocked():
             sys.modules[name] = None
         import torch
         torch.set_num_threads(2)
+        import os, sys, tempfile
         from super_gradients_tpu_torch import models
         from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         before = {k: v.clone() for k, v in model.net.state_dict().items()}
         loader = torch.utils.data.DataLoader(RandomDetectionDataset(4, (64, 64), 4, 8), batch_size=2)
-        trainer = Trainer("blocked")
+        trainer = Trainer("blocked", ckpt_root_dir=tempfile.mkdtemp())
         trainer.train(model, dict(max_epochs=1, loss="PPYoloELoss", criterion_params={"num_classes": 4},
                                   optimizer="AdamW", optimizer_params={"weight_decay": 1e-5}, initial_lr=2e-4,
-                                  lr_mode="CosineLRScheduler", ema=True, mixed_precision=True, save_model=False,
-                                  zero_weight_decay_on_bias_and_bn=True), loader)
+                                  lr_mode="CosineLRScheduler", ema=True, mixed_precision=True,
+                                  zero_weight_decay_on_bias_and_bn=True, metric_to_watch="mAP@0.50:0.95",
+                                  valid_metrics_list=[{"DetectionMetrics": {"num_cls": 4}}]), loader, loader)
         changed = sum(not torch.equal(before[k], v) for k, v in model.net.state_dict().items())
         assert len(trainer.train_loss_history) == 1 and changed > 0, (trainer.train_loss_history, changed)
+        assert "mAP@0.50:0.95" in trainer.valid_metrics_history[0], trainer.valid_metrics_history
+        assert {"ckpt_latest.pth", "ckpt_best.pth", "average_model.pth"} <= set(os.listdir(trainer.ckpt_dir))
+        assert not [m for m in ("jax", "flax", "optax", "super_gradients_tpu") if sys.modules.get(m) is not None]
         print("OK", trainer.train_loss_history[0])
         """
     )
@@ -298,9 +396,9 @@ def test_default_training_params_match_the_yaml():
     assert trainer.DEFAULT_TRAINING_PARAMS == load_recipe("training_hyperparams/default_train_params.yaml")
 
 
-def test_silent_drop_guard_reports_unread_keys():
+def test_silent_drop_guard_reports_unread_keys(tmp_path):
     model = _model_stub()
     model.load_state_dict = lambda state_dict: None
-    t = trainer.Trainer("t")
+    t = trainer.Trainer("t", ckpt_root_dir=str(tmp_path))
     t.train(model, dict(loss=lambda o, t: None, save_model=False, totally_bogus_knob=1), [])
     assert t.unconsumed_training_params == ["totally_bogus_knob"]

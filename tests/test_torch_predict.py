@@ -187,15 +187,26 @@ def test_get_on_cuda_raises_without_gpu():
         models.get("yolo_nas_s", num_classes=4, image_size=64)
 
 
-def test_unported_inputs_and_outputs_raise(pair):
+def test_unported_inputs_and_outputs_raise(pair, tmp_path):
     _, pm = pair
     with pytest.raises(TypeError):
         pm.predict("image.jpg")
     pred = pm.predict(_images()[0], bf16=False)[0]
     with pytest.raises(NotImplementedError):
         pred.draw()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.get("yolo_nas_s", device="cpu", pretrained_weights="coco")
+    # checkpoint_path loads a .pth of the original super-gradients layout, ema_net first
+    live = {k: v + 1 if v.is_floating_point() else v for k, v in pm.net.state_dict().items()}
+    path = str(tmp_path / "ckpt.pth")
+    torch.save({"net": live, "ema_net": pm.net.state_dict(), "epoch": 0}, path)
+    loaded = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu", seed=5, checkpoint_path=path)
+    x = torch.from_numpy(np.random.RandomState(6).rand(1, 64, 64, 3).astype(np.float32))
+    for g, r in zip(loaded.predict_batch_tensor(x, bf16=False), pm.predict_batch_tensor(x, bf16=False)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    torch.save({"net": live}, path)
+    loaded = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu", checkpoint_path=path)
+    assert all(torch.equal(v, live[k]) for k, v in loaded.net.state_dict().items())
 
 
 def test_port_runs_with_jax_blocked():

@@ -90,12 +90,13 @@ def runs(tmp_path_factory):
     pm = _port_model(v)
     x = torch.from_numpy(np.random.RandomState(9).rand(2, IMAGE, IMAGE, 3).astype(np.float32))
     predicted_before = pm.predict_batch_tensor(x)  # builds and caches the deploy-form network
-    pt = Trainer("port_parity")
+    root = str(tmp_path_factory.mktemp("port_ckpt"))
+    pt = Trainer("port_parity", ckpt_root_dir=root)
     pt.train(pm, PARAMS, _port_loader())
 
     ref = _port_model(v)  # the same run in fp64: the reference both fp32 runs are held to
     ref.net.double()
-    rt = Trainer("port_parity_fp64")
+    rt = Trainer("port_parity_fp64", ckpt_root_dir=root)
     rt.train(ref, PARAMS, _f64(_port_loader()))
     st = jt.train_state
     return dict(
@@ -198,7 +199,7 @@ def test_predict_after_train_uses_trained_weights(runs):
     assert not pm.net.training and runs["port_trainer"].train_state.net.training is False
 
 
-def test_bf16_step_tracks_fp32_loss(runs):
+def test_bf16_step_tracks_fp32_loss(runs, tmp_path):
     """One bf16 step: the loss within rtol=0.05 of the fp32 loss on the same weights
     and batch; parameters, EMA and BN buffers stay fp32."""
     v = runs["v0"]
@@ -206,7 +207,7 @@ def test_bf16_step_tracks_fp32_loss(runs):
     losses = {}
     for mp in (False, True):
         model = _port_model(v)
-        trainer = Trainer("bf16")
+        trainer = Trainer("bf16", ckpt_root_dir=str(tmp_path))
         trainer.train(model, dict(PARAMS, mixed_precision=mp, max_train_batches=1), [(images, targets)])
         losses[mp] = trainer.train_loss_history[0]
         st = trainer.train_state

@@ -23,14 +23,17 @@ class BaseFactory:
     """Resolve ``str | {name: params} | instance`` into an instance.
 
     ``not_ported`` maps names registered in the JAX package but not here to their
-    ROADMAP item; asking for one raises ``KeyError`` naming it.
+    ROADMAP item; asking for one raises ``KeyError`` naming it. An unknown name
+    raises ``unknown_error`` (the JAX package's callback and logger lookups raise
+    ``KeyError``, its factories ``FactoryError``).
     """
 
     def __init__(self, type_dict: Mapping[str, Callable], not_ported: Optional[Mapping[str, str]] = None,
-                 kind: str = "type"):
+                 kind: str = "type", unknown_error: type = FactoryError):
         self.type_dict = type_dict
         self.not_ported = dict(not_ported or {})
         self.kind = kind
+        self.unknown_error = unknown_error
 
     def get(self, conf: Any) -> Any:
         if conf is None:
@@ -50,5 +53,5 @@ class BaseFactory:
                 raise not_ported_error(self.kind, name, self.not_ported[name])
             close = [k for k in self.type_dict if k.lower() == name.lower()]
             hint = f" Did you mean `{close[0]}`?" if close else ""
-            raise FactoryError(f"Unknown {self.kind} name `{name}`. Registered: {sorted(self.type_dict)}.{hint}")
+            raise self.unknown_error(f"Unknown {self.kind} name `{name}`. Registered: {sorted(self.type_dict)}.{hint}")
         return self.type_dict[name](**params)

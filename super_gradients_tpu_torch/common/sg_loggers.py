@@ -19,6 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from super_gradients_tpu_torch.common.environment import is_primary_process
+from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import SG_LOGGERS, register_sg_logger
 
 logger = logging.getLogger(__name__)
@@ -134,8 +135,5 @@ for _name in ("wandb_sg_logger", "clearml_sg_logger", "dagshub_sg_logger", "deci
 
 
 def get_sg_logger(name, **params) -> AbstractSGLogger:
-    if isinstance(name, AbstractSGLogger):
-        return name
-    if name not in SG_LOGGERS:
-        raise KeyError(f"Unknown sg_logger `{name}`; registered: {sorted(SG_LOGGERS)}")
-    return SG_LOGGERS[name](**params)
+    conf = {name: params} if isinstance(name, str) else name  # an instance passes as is
+    return BaseFactory(SG_LOGGERS, kind="sg_logger", unknown_error=KeyError).get(conf)

@@ -17,7 +17,7 @@ import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
-from super_gradients_tpu_torch.common.factories import not_ported_error
+from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import CALLBACKS, register_callback
 
 logger = logging.getLogger(__name__)
@@ -189,19 +189,9 @@ class CallbackHandler(Callback):
 
 def resolve_callback(c) -> Callback:
     """A Callback instance as is, or one built from a registry name or a ``{name: params}`` dict."""
-    if isinstance(c, Callback):
-        return c
-    if isinstance(c, str):
-        name, params = c, {}
-    elif isinstance(c, dict) and len(c) == 1:
-        name, params = next(iter(c.items()))
-    else:
+    if not (isinstance(c, (Callback, str)) or (isinstance(c, dict) and len(c) == 1)):
         raise TypeError(f"Cannot resolve phase callback from {c!r}")
-    if name not in CALLBACKS:
-        if name in NOT_PORTED:
-            raise not_ported_error("callback", name, NOT_PORTED[name])
-        raise KeyError(f"Unknown callback `{name}`; registered: {sorted(CALLBACKS)}")
-    return CALLBACKS[name](**(params or {}))
+    return BaseFactory(CALLBACKS, NOT_PORTED, kind="callback", unknown_error=KeyError).get(c)
 
 
 @register_callback("EarlyStop")

@@ -15,7 +15,7 @@ import io
 import logging
 import math
 import os
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -34,10 +34,9 @@ def serialize(state: Dict) -> bytes:
     return buf.getvalue()
 
 
-def save_checkpoint(ckpt_dir: str, name: str, state: Union[Dict, bytes]) -> str:
-    """Write ``state`` (a dict, or bytes from :func:`serialize`) to ``<ckpt_dir>/<name>.pth``."""
+def save_checkpoint(ckpt_dir: str, name: str, data: bytes) -> str:
+    """Write ``data`` (a dict through :func:`serialize`) to ``<ckpt_dir>/<name>.pth``."""
     path = checkpoint_path(ckpt_dir, name)
-    data = state if isinstance(state, (bytes, bytearray)) else serialize(state)
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:

@@ -126,10 +126,6 @@ class _TrackedParams(dict):
         self._read_keys.add(k)
         return super().get(k, default)
 
-    def setdefault(self, k, default=None):
-        self._read_keys.add(k)
-        return super().setdefault(k, default)
-
     def unread_keys(self) -> List[str]:
         return sorted(set(self) - self._read_keys - self._IGNORED)
 
@@ -585,7 +581,7 @@ class Trainer:
             # the averaged parameters with the LIVE BN statistics, as the JAX trainer pairs them
             net = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
             net.update(averager.averaged_params())
-            ckpt_utils.save_checkpoint(self.ckpt_dir, "average_model", {"net": net})
+            ckpt_utils.save_checkpoint(self.ckpt_dir, "average_model", ckpt_utils.serialize({"net": net}))
 
     def _try_resume(self, tp, state: TrainState) -> int:
         """Restore ``state`` from the run's checkpoint; returns the epoch to start at."""

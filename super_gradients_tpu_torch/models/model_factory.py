@@ -78,6 +78,9 @@ def get(
     device="cuda",
     checkpoint_path: Optional[str] = None,
     pretrained_weights: Optional[str] = None,
+    checkpoint_num_classes: Optional[int] = None,
+    load_backbone: bool = False,
+    strict_load: Optional[bool] = None,
     **kwargs,
 ) -> DetectionModel:
     """Instantiate a model from the zoo with random weights made from ``seed``.
@@ -85,12 +88,20 @@ def get(
     ``device`` defaults to ``"cuda"`` and raises when no GPU is visible; pass
     ``device="cpu"`` to run on the CPU. ``checkpoint_path`` loads a ``.pth`` file
     of the original super-gradients layout (``ema_net`` preferred over ``net``, as
-    ``Trainer.train`` writes them) through ``load_state_dict``. ``pretrained_weights``
-    raises: no weights are in the repository.
+    ``Trainer.train`` writes them) through ``load_state_dict``: only its backbone with
+    ``load_backbone``, only the tensors whose name and shape match with
+    ``strict_load=False`` (the default when ``load_backbone``). A checkpoint of another
+    class count (``checkpoint_num_classes``) is loaded at that count, then the head is
+    replaced (:func:`replace_head`). ``pretrained_weights`` raises: no weights are in
+    the repository.
     """
     if pretrained_weights is not None:
         raise NotImplementedError("pretrained_weights: no pretrained weights are in the repository; "
                                   "pass checkpoint_path= to a .pth file (ROADMAP.md queue 1, 'Predict-path leftovers')")
+    if checkpoint_num_classes is not None and num_classes is not None and checkpoint_num_classes != num_classes:
+        base = get(model_name, num_classes=checkpoint_num_classes, arch_params=arch_params, seed=seed, device=device,
+                   checkpoint_path=checkpoint_path, load_backbone=load_backbone, strict_load=strict_load, **kwargs)
+        return replace_head(base, num_classes, seed=seed, arch_params=arch_params, **kwargs)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"models.get(..., device='{device}'): CUDA is not available; pass device='cpu' to run on the CPU")
@@ -106,5 +117,17 @@ def get(
     if checkpoint_path is not None:
         from super_gradients_tpu_torch.training.checkpoints import load_checkpoint_into_model
 
-        load_checkpoint_into_model(model, checkpoint_path)
+        load_checkpoint_into_model(model, checkpoint_path, only_subtree="backbone" if load_backbone else None,
+                                   strict=strict_load if strict_load is not None else not load_backbone)
     return model
+
+
+def replace_head(model: DetectionModel, new_num_classes: int, seed: int = 0, **kwargs) -> DetectionModel:
+    """The same architecture at ``new_num_classes``, with every tensor whose name and
+    shape match taken from ``model`` (the backbone and neck stay bit-identical) and only
+    the class-dependent head tensors freshly initialized from ``seed``."""
+    from super_gradients_tpu_torch.training.checkpoints import transfer_weights
+
+    new_model = get(model.name, num_classes=new_num_classes, seed=seed, device=model.device, **kwargs)
+    new_model.load_state_dict(transfer_weights(model.net.state_dict(), new_model.net.state_dict()))
+    return new_model

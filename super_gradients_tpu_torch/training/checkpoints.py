@@ -67,13 +67,36 @@ def model_state_dict_of(ckpt: Dict) -> Dict[str, torch.Tensor]:
     return ckpt.get("state_dict", ckpt)
 
 
-def load_checkpoint_into_model(model, checkpoint_path: str):
+def resolve_subtree_key(keys, subtree: str) -> Optional[str]:
+    """The top-level module name among ``keys`` that ``subtree`` means (``backbone``,
+    ``_backbone``), or None."""
+    for cand in (subtree, f"_{subtree}", subtree.lstrip("_")):
+        if cand in keys:
+            return cand
+    return None
+
+
+def load_checkpoint_into_model(model, checkpoint_path: str, only_subtree: Optional[str] = None, strict: bool = True):
     """Load a ``.pth`` checkpoint into an SgModel through ``model.load_state_dict``.
-    (The JAX function's ``only_subtree``, for the recipes' ``load_backbone``, comes
-    with the recipe-driven class methods: ROADMAP.md queue 1, item 3.)"""
-    ckpt = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
-    model.load_state_dict(model_state_dict_of(ckpt))
-    logger.info(f"Loaded checkpoint from {checkpoint_path}")
+
+    ``only_subtree="backbone"`` takes that top-level module's tensors from the file and
+    keeps the model's own for the rest (the recipes' ``load_backbone``). With
+    ``strict=False`` only the tensors whose name and shape match are taken."""
+    src = model_state_dict_of(torch.load(checkpoint_path, map_location="cpu", weights_only=True))
+    own = model.net.state_dict()
+    if only_subtree:
+        own_tops, src_tops = ({k.split(".", 1)[0] for k in sd} for sd in (own, src))
+        model_key, src_key = resolve_subtree_key(own_tops, only_subtree), resolve_subtree_key(src_tops, only_subtree)
+        if model_key is None or src_key is None:
+            raise KeyError(f"only_subtree='{only_subtree}' matches no top-level module of the "
+                           f"{'model' if model_key is None else 'checkpoint'} (model: {sorted(own_tops)}, "
+                           f"checkpoint: {sorted(src_tops)})")
+        src = {model_key + k[len(src_key):]: v for k, v in src.items() if k.split(".", 1)[0] == src_key}
+        strict = False
+    if not strict:
+        src = transfer_weights(src, own)
+    model.load_state_dict(src)
+    logger.info(f"Loaded checkpoint from {checkpoint_path}" + (f" (subtree {only_subtree})" if only_subtree else ""))
     return model
 
 

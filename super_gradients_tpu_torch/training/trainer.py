@@ -17,6 +17,11 @@ outputs cast to fp32 before the loss and the metrics; ``DetectionMetrics`` runs
 ``.pth`` checkpoints (``ckpt_latest``, ``ckpt_best``, ``ckpt_epoch_N``,
 ``average_model``) in ``<ckpt_root_dir>/<experiment>/RUN_<ts>/`` with
 ``recipe.json``, and ``resume``. ``evaluate`` and ``test`` run the eval loop alone.
+A uint8 batch, from a loader with a ``max_value``, is standardized on the device.
+
+From a recipe: ``Trainer.train_from_config(cfg)`` builds the recipe's model (on its
+``device``, the GPU by default) and loaders and trains; ``evaluate_checkpoint`` and
+``resume_experiment`` rebuild them from a run's ``recipe.json``.
 
 Precise BN, QAT and KD are not ported yet: a training parameter that asks for one
 of them raises ``NotImplementedError`` naming its ROADMAP item.
@@ -31,6 +36,7 @@ import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from super_gradients_tpu_torch.common.environment import (
@@ -39,8 +45,10 @@ from super_gradients_tpu_torch.common.environment import (
     get_latest_run_id,
     is_primary_process,
 )
+from super_gradients_tpu_torch.common.registry import PRE_LAUNCH_CALLBACKS
 from super_gradients_tpu_torch.common.sg_loggers import get_sg_logger
 from super_gradients_tpu_torch.training import checkpoints as ckpt_utils
+from super_gradients_tpu_torch.training import dataloaders
 from super_gradients_tpu_torch.training.callbacks import Callback, CallbackHandler, PhaseContext, resolve_callback
 from super_gradients_tpu_torch.training.ema import ModelEMA, make_decay_fn
 from super_gradients_tpu_torch.training.losses import get_loss
@@ -143,9 +151,15 @@ def _metrics_view(out):
     return out.student_output if hasattr(out, "student_output") else out
 
 
-def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device):
-    """A host batch onto the device: pinned copies ``non_blocking``, images channels_last on a GPU."""
+def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device, max_value: Optional[float] = None):
+    """A host batch onto the device: pinned copies ``non_blocking``, images channels_last on a
+    GPU. A uint8 batch is standardized there, ``x * float32(1 / max_value)`` in float32,
+    bit-equal to the host's ``DetectionStandardize``; a float batch passes unchanged."""
     images = images.to(device, non_blocking=True)
+    if images.dtype == torch.uint8:
+        if max_value is None:
+            raise ValueError("a uint8 image batch needs its loader's `max_value` to be standardized on the device")
+        images = images.float().mul_(float(np.float32(1.0 / max_value)))
     if device.type == "cuda":
         images = images.contiguous(memory_format=torch.channels_last)
     return images, targets.to(device, non_blocking=True)
@@ -238,6 +252,7 @@ class Trainer:
         self.train_metrics_history: List[Dict[str, float]] = []
         self.unconsumed_training_params: List[str] = []
         self.sg_logger = None
+        self._recipe_cfg: Optional[Dict] = None  # the whole recipe when launched by train_from_config
 
     def prepare(self, model, training_params: Dict, steps_per_epoch: int) -> TrainStep:
         """The :class:`TrainStep` that ``train()`` runs for these parameters, over a
@@ -376,6 +391,7 @@ class Trainer:
         # host-sync cadence: the running loss and LR reach the context every N batches only
         sync_every = int(tp.get("train_logging_frequency") or 50)
         eval_net = None  # built at the first validation or test
+        train_max_value = getattr(train_loader, "max_value", None)
 
         try:
             for epoch in range(start_epoch, max_epochs):
@@ -404,7 +420,7 @@ class Trainer:
                         break
                     context.update_context(batch_idx=batch_idx, step=state.step, train_batch=batch)
                     handler.on_train_batch_start(context)
-                    images, targets = _to_device(batch[0], batch[1], device)
+                    images, targets = _to_device(batch[0], batch[1], device, train_max_value)
                     loss, outputs = step.run(images, targets)
                     lr = step.lr_schedule((state.step - 1) // batch_accumulate)
                     if has_train_metrics:
@@ -519,7 +535,7 @@ class Trainer:
                 break
             if context is not None:
                 context.update_context(batch_idx=vidx, valid_batch=batch)
-            images, targets = _to_device(batch[0], batch[1], device)
+            images, targets = _to_device(batch[0], batch[1], device, getattr(loader, "max_value", None))
             with torch.inference_mode():
                 with autocast(device, mixed_precision):
                     outputs = net(images)
@@ -626,7 +642,7 @@ class Trainer:
                 return obj
             return repr(obj)
 
-        recipe = {
+        recipe = self._recipe_cfg if self._recipe_cfg is not None else {
             "experiment_name": self.experiment_name,
             "architecture": getattr(model, "name", None),
             "num_classes": getattr(model, "num_classes", None),
@@ -652,3 +668,106 @@ class Trainer:
 
     def test(self, model, test_loader, test_metrics_list=None, loss=None) -> Dict[str, float]:
         return self.evaluate(model, test_loader, {"loss": loss} if loss else {}, metrics_list=test_metrics_list)
+
+    # ------------------------------------------------------------ recipes
+
+    @staticmethod
+    def _trigger_cfg_modifying_callbacks(cfg: Dict) -> Dict:
+        """Run the recipe's ``pre_launch_callbacks_list`` over it before anything is built."""
+        for entry in cfg.get("pre_launch_callbacks_list") or []:
+            if isinstance(entry, (str, dict)):
+                name, params = (entry, {}) if isinstance(entry, str) else next(iter(entry.items()))
+                if name not in PRE_LAUNCH_CALLBACKS:
+                    raise KeyError(f"pre-launch callback `{name}` is not ported yet "
+                                   f"(ROADMAP.md queue 1, item 3: pre-launch callbacks)")
+                cb = PRE_LAUNCH_CALLBACKS[name](**(params or {}))
+            else:
+                cb = entry  # an instance
+            cfg = cb(cfg) or cfg
+        return cfg
+
+    @staticmethod
+    def _model_from_cfg(cfg: Dict):
+        """``models.get`` with the recipe's ``checkpoint_params`` (``checkpoint_path``,
+        ``pretrained_weights``, ``checkpoint_num_classes``, ``load_backbone``,
+        ``strict_load``), on the recipe's ``device`` (the GPU unless it says ``cpu``)."""
+        from super_gradients_tpu_torch import models
+
+        cp = cfg.get("checkpoint_params") or {}
+        if cp.get("teacher_pretrained_weights") or cp.get("teacher_checkpoint_path"):
+            raise NotImplementedError(f"knowledge distillation (a teacher in checkpoint_params) is not ported yet ({_LATER})")
+        return models.get(
+            cfg["architecture"],
+            num_classes=cfg.get("num_classes") or (cfg.get("arch_params") or {}).get("num_classes"),
+            arch_params=cfg.get("arch_params"),
+            checkpoint_path=cp.get("checkpoint_path"),
+            pretrained_weights=cp.get("pretrained_weights"),
+            checkpoint_num_classes=cp.get("checkpoint_num_classes"),
+            load_backbone=bool(cp.get("load_backbone")),
+            strict_load=cp.get("strict_load"),
+            device=cfg.get("device") or "cuda",
+        )
+
+    @staticmethod
+    def _loader_from_cfg(cfg: Dict, split: str):
+        params = cfg.get("dataset_params") or {}
+        return dataloaders.get(
+            cfg.get(f"{split}_dataloader"),
+            dataset_params=params.get(f"{split}_dataset_params"),
+            dataloader_params=params.get(f"{split}_dataloader_params"),
+        )
+
+    @classmethod
+    def train_from_config(cls, cfg: Dict):
+        """Train from a resolved recipe: its model, its train and val loaders, its
+        ``training_hyperparams``; ``recipe.json`` holds the whole recipe. Returns
+        ``(model, trainer)``."""
+        cfg = cls._trigger_cfg_modifying_callbacks(dict(cfg))
+        trainer = cls(experiment_name=cfg.get("experiment_name", "experiment"), ckpt_root_dir=cfg.get("ckpt_root_dir"))
+        trainer._recipe_cfg = cfg
+        model = cls._model_from_cfg(cfg)
+        train_loader = cls._loader_from_cfg(cfg, "train")
+        valid_loader = cls._loader_from_cfg(cfg, "val")
+        model = trainer.train(model, cfg.get("training_hyperparams") or {}, train_loader, valid_loader)
+        return model, trainer
+
+    @staticmethod
+    def _load_run_recipe(experiment_name: str, ckpt_root_dir: Optional[str], run_id: Optional[str]):
+        run_id = run_id or get_latest_run_id(experiment_name, ckpt_root_dir)
+        if run_id is None:
+            raise FileNotFoundError(f"No previous run found for experiment `{experiment_name}`")
+        ckpt_dir = get_checkpoints_dir_path(experiment_name, ckpt_root_dir, run_id)
+        recipe_path = os.path.join(ckpt_dir, "recipe.json")
+        if not os.path.exists(recipe_path):
+            raise FileNotFoundError(f"{recipe_path} missing: the run was not launched from a recipe")
+        with open(recipe_path) as f:
+            return run_id, ckpt_dir, json.load(f)
+
+    @classmethod
+    def evaluate_checkpoint(cls, experiment_name: str, ckpt_root_dir: Optional[str] = None,
+                            ckpt_name: str = "ckpt_best", run_id: Optional[str] = None) -> Dict[str, float]:
+        """Rebuild a recipe-launched run's model and val loader from its ``recipe.json``,
+        load the named checkpoint (its EMA weights when it has them) and validate."""
+        _, ckpt_dir, cfg = cls._load_run_recipe(experiment_name, ckpt_root_dir, run_id)
+        model = cls._model_from_cfg(cfg)
+        ckpt_utils.load_checkpoint_into_model(model, ckpt_utils.checkpoint_path(ckpt_dir, ckpt_name))
+        valid_loader = cls._loader_from_cfg(cfg, "val")
+        trainer = cls(experiment_name, ckpt_root_dir=ckpt_root_dir)
+        return trainer.evaluate(model, valid_loader, cfg.get("training_hyperparams") or {})
+
+    @classmethod
+    def resume_experiment(cls, experiment_name: str, ckpt_root_dir: Optional[str] = None, run_id: Optional[str] = None):
+        """Continue a recipe-launched run from its ``recipe.json`` and latest checkpoint."""
+        run_id, _, cfg = cls._load_run_recipe(experiment_name, ckpt_root_dir, run_id)
+        if "architecture" not in cfg or cfg.get("train_dataloader") is None and "dataset_params" not in cfg:
+            raise ValueError(
+                "Persisted recipe lacks model/dataloader config (the run was launched via "
+                "Trainer.train() directly); resume by calling train() again with "
+                "training_params={'resume': True, 'run_id': run_id}"
+            )
+        cfg.setdefault("training_hyperparams", {})
+        cfg["training_hyperparams"]["resume"] = True
+        cfg["training_hyperparams"]["run_id"] = run_id
+        if ckpt_root_dir:
+            cfg["ckpt_root_dir"] = ckpt_root_dir
+        return cls.train_from_config(cfg)

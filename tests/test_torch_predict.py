@@ -14,6 +14,7 @@ must agree in count and labels, with boxes to ``atol=5e-2`` and scores to
 matched detection sets at a stated looser bound.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -24,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from super_gradients_tpu import models as jax_models
 from super_gradients_tpu_torch import models
@@ -209,18 +211,33 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
     assert all(torch.equal(v, live[k]) for k, v in loaded.net.state_dict().items())
 
 
-def test_port_runs_with_jax_blocked():
-    """The port imports and predicts with jax, flax, cv2, PIL and the JAX package
-    unavailable (as on the GPU machine), and never imports them."""
+def test_port_runs_with_jax_blocked(tmp_path):
+    """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
+    unavailable (as on the GPU machine), and never imports them: every module of the
+    recipe slice imports, and a COCO-format dataset of PNGs runs one sample through the
+    YOLO-NAS train chain; only a non-PNG image asks for PIL."""
+    rng = np.random.RandomState(1)
+    os.makedirs(tmp_path / "images")
+    for i in range(4):
+        Image.fromarray(rng.randint(0, 256, (48 + 8 * i, 64, 3), dtype=np.uint8)).save(tmp_path / "images" / f"{i}.png")
+    Image.fromarray(rng.randint(0, 256, (8, 8, 3), dtype=np.uint8)).save(tmp_path / "x.jpg")
+    coco = {"images": [{"id": i, "file_name": f"{i}.png"} for i in range(4)],
+            "annotations": [{"id": i, "image_id": i, "category_id": 1, "bbox": [4, 4, 20, 16], "iscrowd": 0}
+                            for i in range(4)],
+            "categories": [{"id": 1, "name": "a"}]}
+    (tmp_path / "coco.json").write_text(json.dumps(coco))
     code = textwrap.dedent(
-        """
+        f"""
         import sys
-        for name in ("jax", "flax", "cv2", "PIL", "super_gradients_tpu"):
+        for name in ("jax", "flax", "cv2", "PIL", "yaml", "super_gradients_tpu"):
             sys.modules[name] = None
         import numpy as np
         import torch
         torch.set_num_threads(2)
-        from super_gradients_tpu_torch import models
+        from super_gradients_tpu_torch import evaluate_checkpoint, evaluate_from_recipe, models, resume_experiment
+        from super_gradients_tpu_torch import train_from_recipe
+        from super_gradients_tpu_torch.common import config
+        from super_gradients_tpu_torch.training import Trainer, dataloaders, datasets, datasets_roboflow
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
             if name.endswith("cls_pred"):
@@ -229,6 +246,22 @@ def test_port_runs_with_jax_blocked():
         preds = model.predict([rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)])
         assert len(preds) == 1 and len(preds[0]) > 0, len(preds[0])
         assert np.isfinite(preds[0].bboxes_xyxy).all()
+        ds = datasets.COCOFormatDetectionDataset({str(tmp_path)!r}, "coco.json", "images",
+                                                 transforms=dataloaders._yolo_nas_train_transforms((64, 64)))
+        image, target = ds[0]
+        assert image.dtype == np.uint8 and image.shape == (3, 64, 64) and ds.max_value == 255.0
+        try:
+            datasets.load_image({str(tmp_path / "x.jpg")!r})
+        except ImportError as e:
+            assert "PIL" in str(e)
+        else:
+            raise AssertionError("a JPEG read without PIL")
+        try:
+            config.load_recipe("roboflow_yolo_nas_m")
+        except ImportError as e:
+            assert "PyYAML" in str(e)
+        else:
+            raise AssertionError("a YAML recipe read without PyYAML")
         print("OK", len(preds[0]))
         """
     )

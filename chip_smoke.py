@@ -50,18 +50,21 @@ result) without CUDA or without the port's sources next to it. Phases:
    alone by CUDA events, host matching and ``compute`` by the host clock, and the
    device's idle share over the batch;
 11. recipe-driven training from a COCO-format dataset at full width: an RF100-layout
-   dataset of 64 train and 32 valid PNGs (seeded smooth fields with 1-30 filled
-   rectangles over 80 categories, a few valid boxes iscrowd) in a temporary directory,
-   then ``train_from_recipe.main`` of ``roboflow_yolo_nas_m`` (YOLO-NAS-M, 640, the
-   mosaic/affine/mixup/HSV/flip chain, uint8 batches standardized on the card), cut to
-   2 epochs of b16 with 8 loader workers, bf16: K1 4 launches inside it, every loss and
-   metric finite, ``recipe.json`` the resolved recipe; ``Trainer.resume_experiment``
-   takes no step and restores a bit-equal state; ``evaluate_checkpoint(ckpt_best)``
-   agrees with that epoch's validation; a uint8 batch standardized on the card is
-   bit-equal to the host's; two loaders of one seed and 4 workers give byte-equal first
-   batches. Timed: ms a step of epoch 2 and the share spent waiting in ``next(loader)``,
-   the device's idle share over those steps, bytes a batch, the loader alone at 0, 4
-   and 8 workers, and one sample's chain by stage.
+   dataset of 64 train and 32 valid PNGs written by PIL (seeded smooth fields with
+   1-30 filled rectangles over 80 categories, a few valid boxes iscrowd) in a temporary
+   directory, then ``train_from_recipe.main`` of ``roboflow_yolo_nas_m`` (YOLO-NAS-M,
+   640, the mosaic/affine/mixup/HSV/flip chain, uint8 batches standardized on the card),
+   cut to 2 epochs of b16 with 8 loader workers, bf16, each epoch tiling the train set
+   to 3 batches a worker: K1 4 launches inside it, every loss and metric finite,
+   ``recipe.json`` the resolved recipe; ``Trainer.resume_experiment`` takes no step and
+   restores a bit-equal state; ``evaluate_checkpoint(ckpt_best)`` equals
+   ``Trainer.evaluate`` of ``models.get(checkpoint_path=ckpt_best.pth)`` on the val
+   loader, and the live weights in place of the EMA's (a planted fault) do not; a uint8
+   batch standardized on the card is bit-equal to the host's; two loaders of one seed
+   and 4 workers give byte-equal first batches. Timed: epoch 2's loop whole and in its
+   steady state (after the first wave of one batch a worker): ms a step, the share
+   spent waiting in ``next(loader)``, the device's idle share; bytes a batch, the loader
+   alone at 0, 4 and 8 workers, and one sample's chain by stage.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -76,12 +79,10 @@ The line before the last is the kernels' JSON report; the last line is
 import copy
 import json
 import os
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "super_gradients_tpu_torch/csrc/nms_exact.cu"
@@ -832,25 +833,10 @@ def phase_validation_timing(torch, np, models, nms_exact):
 
 
 RF100_SIZES = ((480, 640), (640, 480), (427, 640), (375, 500))  # (h, w): 640x480, 480x640, 640x427, 500x375
-# evaluate_checkpoint (fp32, as the JAX Trainer.evaluate) against the epoch's bf16 validation:
-# |difference| of each metric, and of Loss relative to it. First H100 run (NVIDIA H100 80GB HBM3,
-# 700.00 W): at most 1.81e-3 (Recall@0.50) and 0.046, random weights after 8 steps
-RECIPE_EVAL_TOL, RECIPE_EVAL_LOSS_RTOL = 5e-3, 0.1
-
-
-def write_png(np, path, image):
-    """An RGB uint8 image as an 8-bit PNG, every line with the Up filter (zlib only)."""
-    h, w, _ = image.shape
-    rows = image.reshape(h, w * 3)
-    up = rows - np.vstack([np.zeros((1, w * 3), np.uint8), rows[:-1]])  # uint8: wraps mod 256
-    raw = np.hstack([np.full((h, 1), 2, np.uint8), up]).tobytes()
-
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+RECIPE_WAVES = 3  # train batches a loader worker makes an epoch in phase 11 (the set tiled by min_samples)
+# evaluate_checkpoint against Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth), both
+# fp32 on the same val set: |difference| of each metric, and of Loss relative to it
+RECIPE_EVAL_TOL = 1e-6
 
 
 def smooth_field(np, rng, h, w):
@@ -865,9 +851,12 @@ def smooth_field(np, rng, h, w):
 
 
 def make_rf100_dataset(np, root, name="synthetic", seed=11):
-    """An RF100-layout COCO dataset of PNGs: 64 train and 32 valid images, 1-30 boxes each
-    over 80 categories, filled rectangles on smooth fields; about 5% of the valid boxes
-    are iscrowd. Returns (boxes, crowd boxes)."""
+    """An RF100-layout COCO dataset of PNGs written by PIL (its adaptive line filters, as
+    real files have them): 64 train and 32 valid images, 1-30 boxes each over 80
+    categories, filled rectangles on smooth fields; about 5% of the valid boxes are
+    iscrowd. Returns (boxes, crowd boxes)."""
+    from PIL import Image
+
     rng = np.random.RandomState(seed)
     n_boxes = n_crowd = 0
     for split, count in (("train", 64), ("valid", 32)):
@@ -885,7 +874,7 @@ def make_rf100_dataset(np, root, name="synthetic", seed=11):
                 annotations.append({"id": len(annotations), "image_id": i, "category_id": int(rng.randint(80)),
                                     "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": crowd})
                 n_boxes, n_crowd = n_boxes + 1, n_crowd + crowd
-            write_png(np, os.path.join(folder, f"{i:04d}.png"), image)
+            Image.fromarray(image).save(os.path.join(folder, f"{i:04d}.png"))
             images.append({"id": i, "file_name": f"{i:04d}.png", "height": h, "width": w})
         with open(os.path.join(folder, "_annotations.coco.json"), "w") as f:
             json.dump({"images": images, "annotations": annotations,
@@ -895,11 +884,13 @@ def make_rf100_dataset(np, root, name="synthetic", seed=11):
 
 class TimedLoader:
     """Wraps a loader: records how long each ``next()`` waits and the bytes of the first
-    batch, and profiles the device over the steps of one epoch (``profile_epoch``)."""
+    batch, and profiles the device over the steps of one epoch (``profile_epoch``) from
+    its request number ``profile_from`` to its end."""
 
-    def __init__(self, loader, profile_epoch):
+    def __init__(self, loader, profile_epoch, profile_from=0):
         self.loader = loader
         self.profile_epoch = profile_epoch
+        self.profile_from = profile_from
         self.epochs = []  # per epoch: (request times, waits)
         self.batch_bytes = None
         self.busy_ms = self.window_ms = None
@@ -914,34 +905,30 @@ class TimedLoader:
         import torch
         from torch.profiler import ProfilerActivity, profile
 
-        requests, waits = [], []
+        requests, waits = [], []  # requests: when each next() began, then the end of the last step
         self.epochs.append((requests, waits))
-        prof = profile(activities=[ProfilerActivity.CUDA]) if len(self.epochs) - 1 == self.profile_epoch else None
-        if prof is not None:
-            prof.__enter__()
-        for batch in _timed(self.loader, requests, waits):
+        profiling = len(self.epochs) - 1 == self.profile_epoch
+        prof = profile(activities=[ProfilerActivity.CUDA]) if profiling else None
+        it = iter(self.loader)
+        while True:
+            if prof is not None and len(requests) == self.profile_from:
+                prof.__enter__()
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                requests.append(t0)
+                break
+            requests.append(t0)
+            waits.append(time.perf_counter() - t0)
             if self.batch_bytes is None:
                 self.batch_bytes = sum(t.numel() * t.element_size() for t in batch)
             yield batch
         if prof is not None:
             torch.cuda.synchronize()
-            self.window_ms = (time.perf_counter() - requests[0]) * 1e3
+            self.window_ms = (time.perf_counter() - requests[self.profile_from]) * 1e3
             prof.__exit__(None, None, None)
             self.busy_ms = sum(_self_device_us(e) for e in prof.key_averages()) / 1e3
-
-
-def _timed(loader, requests, waits):
-    it = iter(loader)
-    while True:
-        t0 = time.perf_counter()
-        try:
-            batch = next(it)
-        except StopIteration:
-            requests.append(t0)  # the end of the last step
-            return
-        requests.append(t0)
-        waits.append(time.perf_counter() - t0)
-        yield batch
 
 
 def one_wave(dataloaders, dataset, workers):
@@ -991,7 +978,7 @@ def close_loader(loader):
 def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
     """Recipe-driven YOLO-NAS-M training from an RF100-layout COCO dataset of PNGs.
     Returns K1's launches inside train_from_recipe."""
-    from super_gradients_tpu_torch import train_from_recipe
+    from super_gradients_tpu_torch import models, train_from_recipe
     from super_gradients_tpu_torch.common import config
     from super_gradients_tpu_torch.training import Trainer, dataloaders
     from super_gradients_tpu_torch.training.trainer import _to_device
@@ -1006,8 +993,10 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
             "epochs=2", "batch_size=16", "val_batch_size=16", f"num_workers={workers}", f"ckpt_root_dir={ckpt_root}",
             "training_hyperparams.mixed_precision=True"]
     cfg = config.load_recipe("roboflow_yolo_nas_m", overrides=cuts)
+    tiled = RECIPE_WAVES * 16 * workers
     print(f"[11] recipe roboflow_yolo_nas_m through train_from_recipe.main (PyYAML present: YAML path); dataset: "
-          f"64 train + 32 valid PNGs, {n_boxes} boxes ({n_crowd} iscrowd); cuts: {cuts}")
+          f"64 train + 32 valid PNGs, {n_boxes} boxes ({n_crowd} iscrowd); cuts: {cuts}, and the train loader "
+          f"rebuilt over the recipe's dataset with min_samples={tiled} ({RECIPE_WAVES} batches a worker an epoch)")
 
     timed = {}
     original_get = dataloaders.get
@@ -1015,7 +1004,9 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
     def timed_get(name=None, **kw):
         loader = original_get(name, **kw)
         if name == cfg["train_dataloader"]:
-            loader = timed.setdefault("train", TimedLoader(loader, profile_epoch=1))
+            loader = dataloaders.DataLoader(loader.dataset, batch_size=loader.batch_size, shuffle=True, drop_last=True,
+                                            num_workers=loader.num_workers, min_samples=tiled)
+            loader = timed.setdefault("train", TimedLoader(loader, profile_epoch=1, profile_from=workers))
         return loader
 
     dataloaders.get = timed_get
@@ -1038,20 +1029,28 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
           f"recipe validation results {valid}")
     with open(os.path.join(trainer.ckpt_dir, "recipe.json")) as f:
         check(json.load(f) == cfg, "recipe.json is not the resolved recipe")
-    check(trainer.train_state.step == 8, f"{trainer.train_state.step} steps taken, expected 8")
+    steps = tiled // 16
+    check(trainer.train_state.step == 2 * steps, f"{trainer.train_state.step} steps taken, expected {2 * steps}")
 
     loader = timed["train"]
     requests, waits = loader.epochs[1]
-    step_ms = (requests[-1] - requests[0]) * 1e3 / len(waits)
-    wait_share = sum(waits) / (requests[-1] - requests[0])
+
+    def loop(start):  # ms a step and loader-wait share over epoch 2's steps from `start` on
+        seconds = requests[-1] - requests[start]
+        return seconds * 1e3 / (len(waits) - start), sum(waits[start:]) / seconds
+
+    whole_ms, whole_share = loop(0)
+    steady_ms, steady_share = loop(workers)
     first_waits = [round(e[1][0] * 1e3, 1) for e in loader.epochs]
-    print(f"[11] train_from_recipe: 2 epochs x 4 steps of 16 at 640 (bf16) with validation and checkpoints in "
+    print(f"[11] train_from_recipe: 2 epochs x {steps} steps of 16 at 640 (bf16) with validation and checkpoints in "
           f"{train_seconds:.1f} s; K1 launches in it: {launches}; losses {history}")
     print(f"[11] validation: {json.dumps(valid)}")
-    print(f"[11] epoch 2 train loop ({workers} workers): {step_ms:.2f} ms a step, {16e3 / step_ms:.1f} img/s; waits in "
-          f"next(loader) {[round(w * 1e3, 1) for w in waits]} ms, loader-wait share {wait_share:.3f}; first batch of "
-          f"each epoch waited {first_waits} ms; device busy {loader.busy_ms:.2f} of {loader.window_ms:.2f} ms, idle "
-          f"share {1 - loader.busy_ms / loader.window_ms:.3f}; {loader.batch_bytes} bytes a batch to the card "
+    print(f"[11] epoch 2 train loop ({workers} workers, {steps} steps): whole {whole_ms:.2f} ms a step "
+          f"({16e3 / whole_ms:.1f} img/s), loader-wait share {whole_share:.3f}; steady state (steps {workers + 1}-{steps}, "
+          f"after the first wave) {steady_ms:.2f} ms a step ({16e3 / steady_ms:.1f} img/s), loader-wait share "
+          f"{steady_share:.3f}, device busy {loader.busy_ms:.2f} of {loader.window_ms:.2f} ms, idle share "
+          f"{1 - loader.busy_ms / loader.window_ms:.3f}; waits in next(loader) {[round(w * 1e3, 1) for w in waits]} ms; "
+          f"first batch of each epoch waited {first_waits} ms; {loader.batch_bytes} bytes a batch to the card "
           f"(uint8 images + float32 targets; float32 images would be {16 * 3 * 640 * 640 * 4} bytes)")
 
     t1 = time.perf_counter()
@@ -1059,18 +1058,33 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
     resume_seconds = time.perf_counter() - t1
     check(resumed.ckpt_dir == trainer.ckpt_dir and resumed.train_loss_history == [], "resume_experiment took a step")
     check_state_equal(torch, trainer.train_state, resumed.train_state)
-    best = torch.load(os.path.join(trainer.ckpt_dir, "ckpt_best.pth"), map_location="cpu", weights_only=True)
+    best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
+    best = torch.load(best_path, map_location="cpu", weights_only=True)
     t2 = time.perf_counter()
     evaluated = Trainer.evaluate_checkpoint("roboflow_yolo_nas_m", ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
     eval_seconds = time.perf_counter() - t2
-    epoch_metrics = valid[best["epoch"]]
-    diffs = {k: abs(evaluated[k] - epoch_metrics[k]) / (abs(epoch_metrics[k]) if k == "Loss" else 1.0) for k in epoch_metrics}
-    tolerance = {k: RECIPE_EVAL_LOSS_RTOL if k == "Loss" else RECIPE_EVAL_TOL for k in diffs}
+
+    def differences(a, b):  # |a - b| of each metric, of Loss relative to b
+        return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
+
+    # the reference: the checkpoint loaded by models.get, evaluated directly on the recipe's val loader
+    model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], arch_params=cfg.get("arch_params"),
+                       checkpoint_path=best_path)
+    val_loader = Trainer._loader_from_cfg(cfg, "val")
+    direct = Trainer("recipe_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
+    diffs = differences(evaluated, direct)
+    model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
+    fault = differences(Trainer("recipe_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
+                                                                                  cfg["training_hyperparams"]), direct)
+    close_loader(val_loader)
     print(f"[11] resume_experiment: no step, state bit-equal, {resume_seconds:.1f} s; evaluate_checkpoint(ckpt_best, "
-          f"epoch {best['epoch']}, fp32) {eval_seconds:.1f} s: {json.dumps(evaluated)}; |difference| to the epoch's "
-          f"bf16 validation (Loss relative): {json.dumps(diffs)}")
-    check(all(diffs[k] <= tolerance[k] for k in diffs), f"evaluate_checkpoint differs from the epoch's validation: {diffs}")
-    del trainer, resumed, best
+          f"epoch {best['epoch']}, fp32) {eval_seconds:.1f} s: {json.dumps(evaluated)}; |difference| to "
+          f"Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): {json.dumps(diffs)}, limit "
+          f"{RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}; to the epoch's bf16 "
+          f"validation: {json.dumps(differences(evaluated, valid[best['epoch']]))}")
+    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
+    check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the evaluate_checkpoint gate: {fault}")
+    del trainer, resumed, best, model
 
     val = dataloaders.get(cfg["val_dataloader"], dataset_params=cfg["dataset_params"]["val_dataset_params"],
                           dataloader_params={"batch_size": 16})

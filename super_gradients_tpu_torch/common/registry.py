@@ -37,10 +37,7 @@ CALLBACKS: Dict[str, Callable] = {}
 LR_SCHEDULERS: Dict[str, Callable] = {}
 OPTIMIZERS: Dict[str, Callable] = {}
 SG_LOGGERS: Dict[str, Callable] = {}
-DATASETS: Dict[str, Callable] = {}
 DATALOADERS: Dict[str, Callable] = {}
-TRANSFORMS: Dict[str, Callable] = {}
-PRE_LAUNCH_CALLBACKS: Dict[str, Callable] = {}
 
 register_model = create_register_decorator(ARCHITECTURES)
 register_loss = create_register_decorator(LOSSES)
@@ -49,7 +46,4 @@ register_callback = create_register_decorator(CALLBACKS)
 register_lr_scheduler = create_register_decorator(LR_SCHEDULERS)
 register_optimizer = create_register_decorator(OPTIMIZERS)
 register_sg_logger = create_register_decorator(SG_LOGGERS)
-register_dataset = create_register_decorator(DATASETS)
 register_dataloader = create_register_decorator(DATALOADERS)
-register_transform = create_register_decorator(TRANSFORMS)
-register_pre_launch_callback = create_register_decorator(PRE_LAUNCH_CALLBACKS)

@@ -33,9 +33,7 @@ def main(argv=None):
         dataset_params=(cfg.get("dataset_params") or {}).get("val_dataset_params"),
     )
     trainer = Trainer(cfg.get("experiment_name", "evaluation"), ckpt_root_dir=cfg.get("ckpt_root_dir"))
-    tp = dict(cfg.get("training_hyperparams") or {})
-    tp.update(max_epochs=0)
-    results = trainer.evaluate(model, valid_loader, tp)
+    results = trainer.evaluate(model, valid_loader, cfg.get("training_hyperparams") or {})
     print("Evaluation results:", results)
     return results
 

@@ -13,8 +13,8 @@ seeded with ``seed``; DataLoader workers reseed both from their worker seed. For
 same seed a dataset draws what the JAX dataset draws from the global ``random`` and
 ``np.random``.
 
-PNG files are read by ``training/png.py``; other files, and PNGs it leaves aside,
-through PIL, imported where it is needed.
+Image files are read through PIL, imported where a file is read, so that the module
+imports without it.
 """
 
 from __future__ import annotations
@@ -27,14 +27,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from super_gradients_tpu_torch.common.registry import register_dataset
 from super_gradients_tpu_torch.inference.processing import (
     ComposeProcessing,
     DetectionBottomRightPadding,
     DetectionLongestMaxSizeRescale,
     StandardizeImage,
 )
-from super_gradients_tpu_torch.training.png import SIGNATURE as PNG_SIGNATURE, decode_png_rgb, png_size
 from super_gradients_tpu_torch.training.transforms.detection import ComposeDetectionTransforms, DetectionSample
 
 logger = logging.getLogger(__name__)
@@ -46,28 +44,18 @@ def _pil_image():
     try:
         from PIL import Image
     except ImportError as e:
-        raise ImportError("reading this image needs PIL (Pillow), which is not installed; "
-                          "the port reads 8-bit non-interlaced PNG files without it") from e
+        raise ImportError("reading an image file needs PIL (Pillow), which is not installed") from e
     return Image
 
 
 def load_image(path: str) -> np.ndarray:
-    """An image file as ``[H, W, 3]`` uint8 RGB, as PIL's ``convert("RGB")`` gives it."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data.startswith(PNG_SIGNATURE):
-        image = decode_png_rgb(data)
-        if image is not None:
-            return image
+    """An image file as ``[H, W, 3]`` uint8 RGB (PIL's ``convert("RGB")``)."""
     with _pil_image().open(path) as im:
         return np.asarray(im.convert("RGB"))
 
 
 def image_size(path: str) -> Tuple[int, int]:
-    """(width, height) of an image file: from the PNG header, else through PIL."""
-    size = png_size(path)
-    if size is not None:
-        return size
+    """(width, height) of an image file, from its header (PIL reads no pixels for it)."""
     with _pil_image().open(path) as im:
         return im.size
 
@@ -213,7 +201,6 @@ class DetectionDataset:
         return info
 
 
-@register_dataset("COCOFormatDetectionDataset")
 class COCOFormatDetectionDataset(DetectionDataset):
     """A COCO instances json (stdlib ``json``; boxes ``[x, y, w, h]``, zero-area ones dropped)."""
 
@@ -257,7 +244,6 @@ class COCOFormatDetectionDataset(DetectionDataset):
             )
 
 
-@register_dataset("COCODetectionDataset")
 class COCODetectionDataset(COCOFormatDetectionDataset):
     """The COCO2017 layout: ``<data_dir>/annotations/<json_file>``, images in ``<data_dir>/<subdir>``."""
 
@@ -270,7 +256,6 @@ class COCODetectionDataset(COCOFormatDetectionDataset):
         )
 
 
-@register_dataset("YoloDarknetFormatDetectionDataset")
 class YoloDarknetFormatDetectionDataset(DetectionDataset):
     """YOLO txt labels: one ``.txt`` per image with normalized ``cls cx cy w h`` rows."""
 

@@ -13,7 +13,6 @@ import logging
 import os
 from typing import Dict, List, Optional, Union
 
-from super_gradients_tpu_torch.common.registry import register_dataset
 from super_gradients_tpu_torch.training.datasets import COCOFormatDetectionDataset
 
 logger = logging.getLogger(__name__)
@@ -158,7 +157,6 @@ def get_dataset_num_classes(dataset_name: str) -> int:
     return meta[1]
 
 
-@register_dataset("RoboflowDetectionDataset")
 class RoboflowDetectionDataset(COCOFormatDetectionDataset):
     """One RF100 dataset; ``split`` is train, valid or test."""
 

@@ -45,7 +45,6 @@ from super_gradients_tpu_torch.common.environment import (
     get_latest_run_id,
     is_primary_process,
 )
-from super_gradients_tpu_torch.common.registry import PRE_LAUNCH_CALLBACKS
 from super_gradients_tpu_torch.common.sg_loggers import get_sg_logger
 from super_gradients_tpu_torch.training import checkpoints as ckpt_utils
 from super_gradients_tpu_torch.training import dataloaders
@@ -673,17 +672,14 @@ class Trainer:
 
     @staticmethod
     def _trigger_cfg_modifying_callbacks(cfg: Dict) -> Dict:
-        """Run the recipe's ``pre_launch_callbacks_list`` over it before anything is built."""
+        """Run the recipe's ``pre_launch_callbacks_list`` over it before anything is built.
+        Only callables run: no callback is ported under a name yet."""
         for entry in cfg.get("pre_launch_callbacks_list") or []:
             if isinstance(entry, (str, dict)):
-                name, params = (entry, {}) if isinstance(entry, str) else next(iter(entry.items()))
-                if name not in PRE_LAUNCH_CALLBACKS:
-                    raise KeyError(f"pre-launch callback `{name}` is not ported yet "
-                                   f"(ROADMAP.md queue 1, item 3: pre-launch callbacks)")
-                cb = PRE_LAUNCH_CALLBACKS[name](**(params or {}))
-            else:
-                cb = entry  # an instance
-            cfg = cb(cfg) or cfg
+                name = entry if isinstance(entry, str) else next(iter(entry))
+                raise KeyError(f"pre-launch callback `{name}` is not ported yet "
+                               f"(ROADMAP.md queue 1, item 3: pre-launch callbacks)")
+            cfg = entry(cfg) or cfg
         return cfg
 
     @staticmethod

@@ -29,7 +29,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from super_gradients_tpu_torch.common.registry import register_transform
 from super_gradients_tpu_torch.inference.processing import resize_bilinear
 
 
@@ -136,7 +135,6 @@ def add_weighted_half(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.rint((a.astype(np.float32) + b.astype(np.float32)) * np.float32(0.5)).astype(np.uint8)
 
 
-@register_transform("DetectionStandardize")
 class DetectionStandardize(DetectionTransform):
     """image / max_value, as float32. When it ends a dataset's chain the dataset skips
     it and ships uint8: the trainer standardizes on the device, bit-equal to this."""
@@ -149,7 +147,6 @@ class DetectionStandardize(DetectionTransform):
         return DetectionSample(img, sample.bboxes_xyxy, sample.labels, sample.is_crowd)
 
 
-@register_transform("DetectionHorizontalFlip")
 class DetectionHorizontalFlip(DetectionTransform):
     def __init__(self, prob: float = 0.5):
         self.prob = prob
@@ -164,7 +161,6 @@ class DetectionHorizontalFlip(DetectionTransform):
         return DetectionSample(img, boxes, sample.labels, sample.is_crowd)
 
 
-@register_transform("DetectionVerticalFlip")
 class DetectionVerticalFlip(DetectionTransform):
     def __init__(self, prob: float = 0.5):
         self.prob = prob
@@ -179,7 +175,6 @@ class DetectionVerticalFlip(DetectionTransform):
         return DetectionSample(img, boxes, sample.labels, sample.is_crowd)
 
 
-@register_transform("DetectionHSV")
 class DetectionHSV(DetectionTransform):
     """Random hue / saturation / value shifts through per-channel LUTs on cv2's uint8 HSV."""
 
@@ -202,7 +197,6 @@ class DetectionHSV(DetectionTransform):
         return DetectionSample(out, sample.bboxes_xyxy, sample.labels, sample.is_crowd)
 
 
-@register_transform("DetectionPaddedRescale")
 class DetectionPaddedRescale(DetectionTransform):
     """Letterbox to ``input_dim`` with bottom-right padding."""
 
@@ -222,7 +216,6 @@ class DetectionPaddedRescale(DetectionTransform):
         return DetectionSample(canvas, boxes.astype(np.float32), sample.labels, sample.is_crowd)
 
 
-@register_transform("DetectionMosaic")
 class DetectionMosaic(DetectionTransform):
     """Four images on a 2x canvas around a random centre."""
 
@@ -277,7 +270,6 @@ class DetectionMosaic(DetectionTransform):
         return DetectionSample(canvas, boxes.astype(np.float32), labels.astype(np.int32)).filter_valid(2.0)
 
 
-@register_transform("DetectionRandomAffine")
 class DetectionRandomAffine(DetectionTransform):
     """Random rotation, scale, shear and translation, warped with the forward matrix."""
 
@@ -340,7 +332,6 @@ class DetectionRandomAffine(DetectionTransform):
         return DetectionSample(out_img, new_boxes, sample.labels, sample.is_crowd).filter_valid(2.0)
 
 
-@register_transform("DetectionMixup")
 class DetectionMixup(DetectionTransform):
     """Blend with one additional image, both on canvases of their common size (pad 114)."""
 

@@ -28,7 +28,7 @@ from PIL import Image
 from super_gradients_tpu.training import dataloaders as jax_loaders
 from super_gradients_tpu.training import datasets as jax_datasets
 from super_gradients_tpu.training import datasets_roboflow as jax_roboflow
-from super_gradients_tpu_torch.common.registry import DATALOADERS, DATASETS
+from super_gradients_tpu_torch.common.registry import DATALOADERS
 from super_gradients_tpu_torch.training import dataloaders, datasets, datasets_roboflow
 from super_gradients_tpu_torch.training.trainer import _to_device
 from super_gradients_tpu_torch.training.transforms.detection import DetectionPaddedRescale, DetectionStandardize
@@ -208,8 +208,6 @@ def test_named_loaders_and_val_batches_equal_jax(data):
         np.testing.assert_array_equal(host, ri)
     assert {"roboflow_train", "roboflow_val", "coco2017_train", "coco2017_train_yolo_nas", "coco2017_val",
             "coco2017_val_yolo_nas", "detection_test_dataloader"} <= set(DATALOADERS)
-    assert {"COCOFormatDetectionDataset", "COCODetectionDataset", "YoloDarknetFormatDetectionDataset",
-            "RoboflowDetectionDataset"} <= set(DATASETS)
     train = dataloaders.get("roboflow_train", dataset_params=params, dataloader_params={"batch_size": 4})
     assert len(train) == len(jax_loaders.get("roboflow_train", dataset_params=params,
                                              dataloader_params={"batch_size": 4})) == 2

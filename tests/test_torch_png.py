@@ -1,13 +1,11 @@
-"""The port's PNG reader (``training/png.py``) against PIL, on the CPU.
+"""The port's image reading (``training/datasets.py::load_image`` / ``image_size``)
+against the JAX package's ``_load_image``, on the CPU.
 
-Tolerance: none. Every PNG the reader decodes (8-bit, non-interlaced: grey, grey +
-alpha, RGB, RGBA, palette; each of the five line filters) must give the bytes of
-``PIL.Image.open(path).convert("RGB")``. PNGs it leaves aside (interlaced, 16-bit,
-palettes under 8 bits) return None from the reader, and ``load_image`` reads them
-through PIL, again to the byte.
+Tolerance: none. Both read through PIL's ``convert("RGB")``; every file (PNG in each
+mode PIL writes, with and without ``optimize``, 16-bit, 1-bit and interlaced PNG, JPEG,
+BMP) must give the same bytes, and ``image_size`` the file's (width, height).
 """
 
-import io
 import struct
 import zlib
 
@@ -15,10 +13,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from super_gradients_tpu.training.datasets import _load_image as jax_load_image
 from super_gradients_tpu_torch.training.datasets import image_size, load_image
-from super_gradients_tpu_torch.training.png import decode_png_rgb, png_size
 
-CHANNELS = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4, "P": 3}
+SIZES = [(37, 53), (64, 31), (1, 17)]
 
 
 def _smooth(rng, h, w, c):
@@ -28,126 +26,58 @@ def _smooth(rng, h, w, c):
     return np.clip(base + rng.randint(-12, 13, base.shape), 0, 255).astype(np.uint8)
 
 
-def _pil_png(image: Image.Image, **save) -> bytes:
-    buf = io.BytesIO()
-    image.save(buf, "PNG", **save)
-    return buf.getvalue()
+def _image(kind: str, rng, h: int, w: int) -> Image.Image:
+    rgb = _smooth(rng, h, w, 4)
+    if kind == "P":  # a 256-entry adaptive palette: 8-bit indices
+        return Image.fromarray(rgb[..., :3]).convert("P", palette=Image.ADAPTIVE, colors=256)
+    if kind == "I;16":
+        return Image.fromarray(rgb[..., 0].astype(np.uint16) * 257)
+    if kind == "1":
+        return Image.fromarray(rgb[..., 0]).convert("1")
+    channels = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4}[kind]
+    return Image.fromarray(rgb[..., 0] if kind == "L" else rgb[..., :channels], kind)
 
 
-def _pil_rgb(data: bytes) -> np.ndarray:
-    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-
-
-def _chunk(kind: bytes, body: bytes) -> bytes:
-    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-
-def _png(header: bytes, data: bytes) -> bytes:
-    return b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(data)) + _chunk(b"IEND", b"")
-
-
-def _filter_line(kind: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
-    """Encode one line with PNG filter ``kind`` (the inverse of the reader's unfilter)."""
-    x = line.astype(np.int32)
-    a = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
-    b = prev.astype(np.int32)
-    c = np.concatenate([np.zeros(bpp, np.int32), b[:-bpp]])
-    if kind == 0:
-        pred = np.zeros_like(x)
-    elif kind == 1:
-        pred = a
-    elif kind == 2:
-        pred = b
-    elif kind == 3:
-        pred = (a + b) // 2
-    else:
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    return ((x - pred) % 256).astype(np.uint8)
-
-
-@pytest.mark.parametrize("optimize", [False, True])
-@pytest.mark.parametrize("hw", [(37, 53), (64, 31), (1, 17)])
-@pytest.mark.parametrize("mode", list(CHANNELS))
-def test_reader_equals_pil(mode, hw, optimize):
-    rng = np.random.RandomState(sum(map(ord, mode)) + hw[0])
-    pixels = _smooth(rng, *hw, CHANNELS[mode])
-    if mode == "P":  # a 256-entry adaptive palette: 8-bit indices
-        image = Image.fromarray(rng.randint(0, 256, (*hw, 3), dtype=np.uint8)).convert("P", palette=Image.ADAPTIVE,
-                                                                                          colors=256)
-    else:
-        image = Image.fromarray(pixels[..., 0] if mode == "L" else pixels, mode)
-    data = _pil_png(image, optimize=optimize)
-    got = decode_png_rgb(data)
-    assert got is not None and got.dtype == np.uint8
-    np.testing.assert_array_equal(got, _pil_rgb(data))
-
-
-@pytest.mark.parametrize("bpp,colour", [(1, 0), (2, 4), (3, 2), (4, 6)])
-def test_every_line_filter_decodes(bpp, colour):
-    """Lines filtered with None, Sub, Up, Average and Paeth in turn (then at random)."""
-    rng = np.random.RandomState(bpp)
-    h, w = 23, 19
-    pixels = _smooth(rng, h, w, bpp).reshape(h, w * bpp)
-    kinds = [i % 5 for i in range(10)] + list(rng.randint(0, 5, h - 10))
-    prev = np.zeros(w * bpp, np.uint8)
-    lines = []
-    for kind, line in zip(kinds, pixels):
-        lines.append(np.concatenate([[kind], _filter_line(kind, line, prev, bpp)]).astype(np.uint8))
-        prev = line
-    data = _png(struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0), np.stack(lines).tobytes())
-    got = decode_png_rgb(data)
-    np.testing.assert_array_equal(got, _pil_rgb(data))
-    expect = pixels.reshape(h, w, bpp)
-    np.testing.assert_array_equal(got, expect[..., :3] if bpp >= 3 else np.repeat(expect[..., :1], 3, axis=2))
-
-
-def _adam7(image: np.ndarray) -> bytes:
-    """Interlaced (Adam7) RGB scanlines, every line unfiltered."""
+def _adam7_png(image: np.ndarray) -> bytes:
+    """An interlaced (Adam7) 8-bit RGB PNG, every line unfiltered: PIL writes none."""
+    h, w, _ = image.shape
     passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
-    out = b""
+    raw = b""
     for x0, y0, dx, dy in passes:
         sub = image[y0::dy, x0::dx]
         if sub.size:
-            out += np.hstack([np.zeros((sub.shape[0], 1), np.uint8), sub.reshape(sub.shape[0], -1)]).tobytes()
-    return out
+            raw += np.hstack([np.zeros((sub.shape[0], 1), np.uint8), sub.reshape(sub.shape[0], -1)]).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 1))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
-def test_files_the_reader_leaves_to_pil(tmp_path):
-    rng = np.random.RandomState(3)
-    image = _smooth(rng, 13, 21, 3)
-    interlaced = _png(struct.pack(">IIBBBBB", 21, 13, 8, 2, 0, 0, 1), _adam7(image))
-    sixteen = _pil_png(Image.fromarray(image[..., 0].astype(np.uint16) * 257))
-    one_bit = _pil_png(Image.fromarray(image[..., 0]).convert("1"))
-    for name, data in (("interlaced", interlaced), ("sixteen", sixteen), ("one_bit", one_bit)):
-        assert decode_png_rgb(data) is None, name
-        path = tmp_path / f"{name}.png"
-        path.write_bytes(data)
-        np.testing.assert_array_equal(load_image(str(path)), _pil_rgb(data))
-    np.testing.assert_array_equal(_pil_rgb(interlaced), image)
+# (file suffix, image mode, PIL save options); mode "Adam7": an interlaced PNG written by hand
+FILES = [
+    ("png", "L", {}), ("png", "LA", {}), ("png", "RGB", {}), ("png", "RGBA", {}), ("png", "P", {}),
+    ("png", "RGB", {"optimize": True}), ("png", "P", {"optimize": True}), ("png", "Adam7", {}),
+    ("png", "I;16", {}), ("png", "1", {}), ("jpg", "RGB", {"quality": 90}), ("jpg", "L", {"quality": 90}),
+    ("bmp", "RGB", {}),
+]
 
 
-def test_load_image_and_sizes(tmp_path):
-    rng = np.random.RandomState(4)
-    pixels = rng.randint(0, 256, (29, 41, 3), dtype=np.uint8)
-    png, jpg = tmp_path / "a.png", tmp_path / "b.jpg"
-    Image.fromarray(pixels).save(png)
-    Image.fromarray(pixels).save(jpg, quality=90)
-    np.testing.assert_array_equal(decode_png_rgb(png.read_bytes()), pixels)
-    np.testing.assert_array_equal(load_image(str(png)), pixels)
-    np.testing.assert_array_equal(load_image(str(jpg)), np.asarray(Image.open(jpg).convert("RGB")))
-    assert png_size(str(png)) == (41, 29) and png_size(str(jpg)) is None
-    assert image_size(str(png)) == image_size(str(jpg)) == (41, 29)
-
-
-def test_corrupt_files_raise():
-    data = bytearray(_pil_png(Image.fromarray(np.zeros((4, 4, 3), np.uint8))))
-    data[-20] ^= 0xFF  # inside the IDAT chunk: its CRC no longer holds
-    with pytest.raises(ValueError, match="CRC"):
-        decode_png_rgb(bytes(data))
-    with pytest.raises(ValueError, match="not a PNG"):
-        decode_png_rgb(b"GIF89a")
-    truncated = _pil_png(Image.fromarray(np.zeros((4, 4, 3), np.uint8)))[:-12]
-    with pytest.raises(ValueError, match="IEND"):
-        decode_png_rgb(truncated)
+@pytest.mark.parametrize("hw", SIZES)
+@pytest.mark.parametrize("suffix,kind,save", FILES, ids=[f"{s}-{k}-{'-'.join(o) or 'plain'}" for s, k, o in FILES])
+def test_load_image_equals_jax(tmp_path, suffix, kind, save, hw):
+    rng = np.random.RandomState(sum(map(ord, kind)) + hw[0])
+    path = str(tmp_path / f"image.{suffix}")
+    if kind == "Adam7":
+        pixels = _smooth(rng, *hw, 3)
+        with open(path, "wb") as f:
+            f.write(_adam7_png(pixels))
+    else:
+        _image(kind, rng, *hw).save(path, **save)
+    got = load_image(path)
+    assert got.dtype == np.uint8 and got.shape == (*hw, 3)
+    if kind == "Adam7":
+        np.testing.assert_array_equal(got, pixels)
+    np.testing.assert_array_equal(got, jax_load_image(path))
+    assert image_size(path) == (hw[1], hw[0])

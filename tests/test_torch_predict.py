@@ -213,9 +213,10 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
-    unavailable (as on the GPU machine), and never imports them: every module of the
-    recipe slice imports, and a COCO-format dataset of PNGs runs one sample through the
-    YOLO-NAS train chain; only a non-PNG image asks for PIL."""
+    unavailable, and never imports them: every module of the recipe slice imports,
+    reading an image or a YAML recipe raises an ImportError that names PIL or PyYAML,
+    and, once PIL is back, a COCO-format dataset of PNGs runs one sample through the
+    YOLO-NAS train chain."""
     rng = np.random.RandomState(1)
     os.makedirs(tmp_path / "images")
     for i in range(4):
@@ -246,22 +247,23 @@ def test_port_runs_with_jax_blocked(tmp_path):
         preds = model.predict([rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)])
         assert len(preds) == 1 and len(preds[0]) > 0, len(preds[0])
         assert np.isfinite(preds[0].bboxes_xyxy).all()
-        ds = datasets.COCOFormatDetectionDataset({str(tmp_path)!r}, "coco.json", "images",
-                                                 transforms=dataloaders._yolo_nas_train_transforms((64, 64)))
-        image, target = ds[0]
-        assert image.dtype == np.uint8 and image.shape == (3, 64, 64) and ds.max_value == 255.0
         try:
             datasets.load_image({str(tmp_path / "x.jpg")!r})
         except ImportError as e:
             assert "PIL" in str(e)
         else:
-            raise AssertionError("a JPEG read without PIL")
+            raise AssertionError("an image read without PIL")
         try:
             config.load_recipe("roboflow_yolo_nas_m")
         except ImportError as e:
             assert "PyYAML" in str(e)
         else:
             raise AssertionError("a YAML recipe read without PyYAML")
+        del sys.modules["PIL"]
+        ds = datasets.COCOFormatDetectionDataset({str(tmp_path)!r}, "coco.json", "images",
+                                                 transforms=dataloaders._yolo_nas_train_transforms((64, 64)))
+        image, target = ds[0]
+        assert image.dtype == np.uint8 and image.shape == (3, 64, 64) and ds.max_value == 255.0
         print("OK", len(preds[0]))
         """
     )

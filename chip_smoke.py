@@ -64,7 +64,21 @@ result) without CUDA or without the port's sources next to it. Phases:
    and 4 workers give byte-equal first batches. Timed: epoch 2's loop whole and in its
    steady state (after the first wave of one batch a worker): ms a step, the share
    spent waiting in ``next(loader)``, the device's idle share; bytes a batch, the loader
-   alone at 0, 4 and 8 workers, and one sample's chain by stage.
+   alone at 0, 4 and 8 workers, one sample's chain by stage, and the loader alone with
+   cv2's own pool in each worker (the kept choice) against cv2 run sequentially there.
+   The transforms take the JAX package's cv2 calls: the phase fails if cv2 does not
+   import, and every no-cv2 stand-in raises while it runs (loader workers included);
+12. the data and predict surface at full width (YOLO-NAS-M, 640, exact NMS; the
+   stand-ins raise here too): ``predict()`` on a folder of PNG and JPEG files, on a PIL
+   image and on an MP4 (8 frames of 640x480, written by cv2), each held to the same call
+   on the CPU (fp32, TF32 off, phase 4's matched-fraction rule); every result drawn and
+   saved, the drawn video read back at its size, frame count and rate; ``predict()`` of
+   phase 3's 4-image request timed again, with its host letterbox alone; one validated
+   ``Trainer.train`` epoch from plain ``torch.utils.data.DataLoader``s over phase 11's
+   dataset, the train order from a ``ClassBalancedSampler``, with
+   ``DetectionVisualizationCallback`` (K1 3 launches: 2 validation batches and the
+   drawing; 4 PNGs through the logger); ``AutoTrainBatchSizeSelectionCallback`` over
+   the ladder 8-64 with an 80 GB budget, each candidate's peak memory printed.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -943,11 +957,12 @@ def one_wave(dataloaders, dataset, workers):
     return 16 * len(batches) / seconds, batches[0]
 
 
-def chain_breakdown(torch, dataset, samples=4):
-    """Milliseconds a sample of each stage of the dataset's chain, on one thread as in a
-    loader worker: decoding the images, then each transform."""
-    threads = torch.get_num_threads()
+def chain_breakdown(torch, cv2, dataset, samples=4):
+    """Milliseconds a sample of each stage of the dataset's chain, on one thread (torch's
+    and cv2's) as in a loader worker: decoding the images, then each transform."""
+    threads, cv2_threads = torch.get_num_threads(), cv2.getNumThreads()
     torch.set_num_threads(1)
+    cv2.setNumThreads(1)
     stages = {"decode": 0.0}
     try:
         for i in range(samples):
@@ -964,6 +979,7 @@ def chain_breakdown(torch, dataset, samples=4):
                 stages[name] = stages.get(name, 0.0) + time.perf_counter() - t0
     finally:
         torch.set_num_threads(threads)
+        cv2.setNumThreads(cv2_threads)
     return {k: round(1e3 * v / samples, 1) for k, v in stages.items()}
 
 
@@ -975,9 +991,69 @@ def close_loader(loader):
     loader._iterator = None
 
 
+class NoStandIns:
+    """While active, every no-cv2 stand-in of the image code (``resize_bilinear``, the
+    torch ``warp_affine``, the numpy HSV conversions, ``add_weighted_half``) raises: the
+    stand-ins must not run quietly where cv2 imports. Loader workers forked inside
+    inherit the traps."""
+
+    def __enter__(self):
+        from super_gradients_tpu_torch.inference import processing
+        from super_gradients_tpu_torch.training.transforms import detection
+
+        def trap(*args, **kwargs):
+            raise RuntimeError("chip_smoke: a no-cv2 stand-in of the image code ran although cv2 imports")
+
+        self.saved = [(m, name, getattr(m, name)) for m, name in (
+            (processing, "resize_bilinear"), (detection, "warp_affine"), (detection, "rgb_to_hsv_u8"),
+            (detection, "hsv_to_rgb_u8"), (detection, "add_weighted_half"))]
+        for m, name, _ in self.saved:
+            setattr(m, name, trap)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+        return False
+
+
+def cv2_threads_rates(dataloaders, cv2, train_set, workers):
+    """The loader alone at ``workers`` workers, one wave each, in turns: cv2's own pool in
+    each worker (the kept choice) and cv2 run sequentially in each worker
+    (``cv2.setNumThreads(0)`` after the worker init; ``setNumThreads(1)`` would resize the
+    pool, which crashes a forked worker whose parent has used it)."""
+    kept = dataloaders._seed_worker
+
+    def sequential(worker_id):
+        kept(worker_id)
+        cv2.setNumThreads(0)
+
+    variants = {f"cv2's pool ({cv2.getNumThreads()} threads) in each worker (kept)": kept,
+                "cv2 sequential in each worker": sequential}
+    rates = {name: [] for name in variants}
+    try:
+        for name in list(variants) + list(variants)[::-1]:
+            dataloaders._seed_worker = variants[name]
+            rates[name].append(one_wave(dataloaders, train_set, workers)[0])
+    finally:
+        dataloaders._seed_worker = kept
+    return rates
+
+
 def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
-    """Recipe-driven YOLO-NAS-M training from an RF100-layout COCO dataset of PNGs.
-    Returns K1's launches inside train_from_recipe."""
+    """Recipe-driven YOLO-NAS-M training from an RF100-layout COCO dataset of PNGs, on the
+    transforms' cv2 path. Returns K1's launches inside train_from_recipe."""
+    from super_gradients_tpu_torch.inference import processing
+
+    cv2 = processing.cv2_module()
+    check(cv2 is not None, "cv2 does not import on this machine: the transforms would take their no-cv2 stand-ins")
+    print(f"[11] cv2 {cv2.__version__} ({cv2.getNumThreads()} threads in the main process): the transforms and the "
+          f"letterbox take the JAX package's cv2 calls; every no-cv2 stand-in raises during this phase")
+    with NoStandIns():
+        return _phase_recipe(torch, np, nms_exact, ckpt_root, data_root, cv2)
+
+
+def _phase_recipe(torch, np, nms_exact, ckpt_root, data_root, cv2):
     from super_gradients_tpu_torch import models, train_from_recipe
     from super_gradients_tpu_torch.common import config
     from super_gradients_tpu_torch.training import Trainer, dataloaders
@@ -1097,7 +1173,7 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
 
     train_set = dataloaders.get(cfg["train_dataloader"], dataset_params=cfg["dataset_params"]["train_dataset_params"],
                                 dataloader_params={"batch_size": 16}).dataset
-    breakdown = chain_breakdown(torch, train_set)
+    breakdown = chain_breakdown(torch, cv2, train_set)
     rates, firsts = {}, []
     for n in (0, 4, 4, workers):
         rate, first = one_wave(dataloaders, train_set, n)
@@ -1105,12 +1181,212 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
         if n == 4:
             firsts.append(first)
     check(all(torch.equal(a, b) for a, b in zip(*firsts)), "two loaders with one seed and 4 workers differ in batch 1")
+    threads = cv2_threads_rates(dataloaders, cv2, train_set, workers)
     print(f"[11] uint8 val batch standardized on the card: bit-equal to the host DetectionStandardize; two train "
           f"loaders (seed 0, 4 workers): first batches byte-equal. Loader alone (mosaic train chain, b16; one batch a "
           f"worker, all at once, from a fresh loader), cpu_count {cpus}: "
           + ", ".join(f"{n} workers {' / '.join(f'{r:.1f}' for r in rs)} img/s" for n, rs in rates.items())
           + f"; a sample's chain on one thread, ms by stage: {json.dumps(breakdown)}")
+    print(f"[11] cv2 threads in the {workers} loader workers, loader alone in turns (img/s): "
+          + "; ".join(f"{name} {' / '.join(f'{r:.1f}' for r in rs)}" for name, rs in threads.items()))
     print(f"[11] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+SURFACE_VIDEO = (8, 480, 640)  # frames, height, width of phase 12's MP4
+SURFACE_BUDGET_GB = 80.0  # the batch-size probe's budget: the card's memory
+SURFACE_LADDER = (8, 64)  # smallest and largest batch the probe tries
+
+
+def write_surface_inputs(np, folder):
+    """Phase 12's inputs: two PNGs and a JPEG written by PIL, and an MP4 written by cv2,
+    of smooth fields with filled rectangles. Returns the video's path."""
+    import cv2
+    from PIL import Image
+
+    rng = np.random.RandomState(12)
+
+    def picture(h, w):
+        image = smooth_field(np, rng, h, w)
+        for _ in range(12):
+            y, x = rng.randint(0, h - 40), rng.randint(0, w - 40)
+            image[y:y + rng.randint(20, h // 3), x:x + rng.randint(20, w // 3)] = rng.randint(0, 256, 3)
+        return image
+
+    images = os.path.join(folder, "images")
+    os.makedirs(images)
+    for name, (h, w) in (("a.png", (480, 640)), ("b.png", (640, 427)), ("c.jpg", (720, 1280))):
+        Image.fromarray(picture(h, w)).save(os.path.join(images, name), **({"quality": 92} if name.endswith(".jpg") else {}))
+    frames, h, w = SURFACE_VIDEO
+    path = os.path.join(folder, "clip.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 8.0, (w, h))
+    base = picture(h, w)
+    for i in range(frames):
+        writer.write(cv2.cvtColor(np.roll(base, 8 * i, axis=1), cv2.COLOR_RGB2BGR))
+    writer.release()
+    return images, path
+
+
+def phase_surface(torch, np, nms_exact, matched_fraction, data_root, work):
+    """The data and predict surface at full width (YOLO-NAS-M, 640, exact NMS): predict on a
+    folder, a PIL image and a video against the CPU, drawing and saving, the 4-image
+    request's latency, a plain-loader epoch with a class-balanced sampler and the
+    visualization callback, and the batch-size probe; every no-cv2 stand-in raises.
+    Returns K1's launches in the phase."""
+    with NoStandIns():
+        return _phase_surface(torch, np, nms_exact, matched_fraction, data_root, work)
+
+
+def _phase_surface(torch, np, nms_exact, matched_fraction, data_root, work):
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.inference import video
+    from super_gradients_tpu_torch.inference.prediction_results import VideoPredictions
+    from super_gradients_tpu_torch.training import Trainer, callbacks, pre_launch_callbacks, samplers
+    from super_gradients_tpu_torch.training.datasets_roboflow import RoboflowDetectionDataset
+    from super_gradients_tpu_torch.training.dataloaders import _yolo_nas_train_transforms, _yolo_nas_val_transforms
+    from super_gradients_tpu_torch.training.losses import get_loss
+
+    t_phase = time.perf_counter()
+    images_dir, video_path = write_surface_inputs(np, work)
+    model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda"))
+    cpu_model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, seed=0, device="cpu"))
+    pil_image = Image.open(os.path.join(images_dir, "b.png"))
+    nms_exact.exact_nms_keep.launches = 0
+
+    # predict on files, a PIL image and a video, fp32 (TF32 off) against the CPU, as phase 4
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = {}
+        for what, source in (("folder", images_dir), ("PIL image", pil_image), ("video", video_path)):
+            gpu = model.predict(source, fuse_model=False, bf16=False)
+            cpu = cpu_model.predict(source, fuse_model=False, bf16=False)
+            check_predictions(np, gpu, len(cpu), f"phase 12 predict on a {what}")
+            fractions = [matched_fraction(a, b, 0.99) for a, b in zip(gpu, cpu)]
+            check(min(fractions) >= 0.99, f"predict on a {what}: GPU vs CPU matched fractions {fractions}")
+            results[what] = (gpu, fractions)
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    check(isinstance(results["video"][0], VideoPredictions) and len(results["video"][0]) == SURFACE_VIDEO[0],
+          "predict on the video did not give one prediction a frame")
+    print(f"[12] yolo_nas_m 640 fp32 predict GPU vs CPU (TF32 off), matched fractions at IoU 0.99: "
+          + "; ".join(f"{what} ({len(r)} images, {sum(len(p) for p in r)} detections) min {min(f):.4f}"
+                      for what, (r, f) in results.items()))
+
+    # draw and save every result; the files read back at their sizes and frame count
+    out = os.path.join(work, "out")
+    for what, (preds, _) in results.items():
+        if what == "video":
+            continue
+        for p in preds:
+            drawn = p.draw()
+            check(drawn.shape == p.image.shape and not np.array_equal(drawn, p.image), f"{what}: draw() drew nothing")
+        preds.save(os.path.join(out, what.replace(" ", "_")))
+        for i, p in enumerate(preds):
+            with Image.open(os.path.join(out, what.replace(" ", "_"), f"pred_{i}.jpg")) as saved:
+                check(saved.size == (p.image.shape[1], p.image.shape[0]), f"{what}: a saved image has another size")
+    video_out = os.path.join(out, "clip_drawn.mp4")
+    results["video"][0].save(video_out)
+    frames, fps = video.load_video(video_out)
+    check(len(frames) == SURFACE_VIDEO[0] and frames[0].shape == SURFACE_VIDEO[1:] + (3,) and fps == 8,
+          f"the drawn video reads back as {len(frames)} frames of {frames[0].shape if frames else None} at {fps} fps")
+    print(f"[12] draw() and save(): {len(os.listdir(os.path.join(out, 'folder')))} + 1 JPEGs at their sizes; the drawn "
+          f"video reads back as {len(frames)} frames of {frames[0].shape[1]}x{frames[0].shape[0]} at {fps} fps")
+
+    # predict() latency of the 4-image request (fused bf16), and its host letterbox alone
+    request = request_images(np, 0)
+    for _ in range(3):
+        model.predict(request)
+    latency, letterbox = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.predict(request)
+        latency.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        model._prep_host_batches(request, 8)
+        letterbox.append((time.perf_counter() - t0) * 1e3)
+    print(f"[12] predict() of 4 mixed-size images (fused bf16, exact NMS), host clock, 10 requests: median "
+          f"{np.median(latency):.2f} ms (min {min(latency):.2f}, max {max(latency):.2f}); the host letterbox alone "
+          f"(cv2.resize, pad, /255) median {np.median(letterbox):.2f} ms")
+
+    # one validated epoch from plain torch loaders, a class-balanced train order, the visualization callback
+    train_set = RoboflowDetectionDataset(data_dir=data_root, dataset_name="synthetic", split="train",
+                                         transforms=_yolo_nas_train_transforms((640, 640)))
+    valid_set = RoboflowDetectionDataset(data_dir=data_root, dataset_name="synthetic", split="valid",
+                                         transforms=_yolo_nas_val_transforms((640, 640)))
+    sampler = samplers.ClassBalancedSampler(dataset=train_set, num_samples=64, seed=0)
+    train_loader = torch.utils.data.DataLoader(train_set, batch_size=16, sampler=sampler, num_workers=8,
+                                               drop_last=True, pin_memory=True)
+    valid_loader = torch.utils.data.DataLoader(valid_set, batch_size=16, num_workers=4, pin_memory=True)
+    trainer = Trainer("surface", ckpt_root_dir=os.path.join(work, "ckpt"))
+    params = dict(COCO_YOLO_NAS, max_epochs=1, save_model=False, sg_logger_params={"tensorboard": False},
+                  phase_callbacks=[callbacks.DetectionVisualizationCallback(max_images=4)])
+    launches_before = nms_exact.exact_nms_keep.launches
+    t0 = time.perf_counter()
+    trainer.train(models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda"), params, train_loader, valid_loader)
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    epoch_launches = nms_exact.exact_nms_keep.launches - launches_before
+    drawn = sorted(os.listdir(os.path.join(trainer.ckpt_dir, "images")))
+    check(len(trainer.train_loss_history) == 1 and np.isfinite(trainer.train_loss_history[0]), "plain-loader epoch loss")
+    check(trainer.train_state.step == 4, f"{trainer.train_state.step} steps from 64 class-balanced samples of 16")
+    check(len(trainer.valid_metrics_history) == 1 and np.isfinite(list(trainer.valid_metrics_history[0].values())).all(),
+          f"plain-loader validation {trainer.valid_metrics_history}")
+    check(epoch_launches == 3, f"K1 launched {epoch_launches} times in the epoch, expected 2 validation batches + 1 drawing")
+    check(len(drawn) == 4, f"the visualization callback wrote {drawn}")
+    side = valid_set[0][0].shape[-1]  # the validation batches' square size, 640
+    with Image.open(os.path.join(trainer.ckpt_dir, "images", drawn[0])) as im:
+        check(im.size == (side, side), f"a drawn validation image is {im.size}, not {side}x{side}")
+    draws = np.bincount(list(sampler), minlength=len(train_set))
+    print(f"[12] plain torch DataLoader (8 workers) over the phase-11 RF100 train set with a ClassBalancedSampler "
+          f"(64 draws, the most-drawn image {draws.max()} times), 1 epoch of 4 steps of 16 at 640 (bf16) validated on "
+          f"32 images through a plain loader, in {train_seconds:.1f} s: loss {trainer.train_loss_history[0]:.4f}, "
+          f"validation {json.dumps(trainer.valid_metrics_history[0])}; K1 {epoch_launches} launches; "
+          f"DetectionVisualizationCallback wrote {drawn}")
+    del trainer, train_loader, valid_loader
+
+    # the pre-launch batch-size probe on YOLO-NAS-M at 640 over a bounded ladder
+    criterion = get_loss("PPYoloELoss", {"num_classes": 80})
+    box = torch.tensor([[1.0, 100.0, 120.0, 300.0, 360.0], [7.0, 320.0, 40.0, 600.0, 200.0]], device=model.device)
+
+    def loss_fn(out, t):  # detection targets for the probe's batch of zero images
+        return criterion(out, box.expand(t.shape[0], 2, 5).contiguous())
+
+    probe = pre_launch_callbacks.estimate_train_step_memory_gb
+    readings = {}
+
+    def recorded(m, bs, hw, fn):
+        readings[bs] = probe(m, bs, hw, fn)
+        return readings[bs]
+
+    recipe = {"dataset_params": {"train_dataloader_params": {"batch_size": 16}},
+              "training_hyperparams": {"initial_lr": 2e-4}}
+    pre_launch_callbacks.estimate_train_step_memory_gb = recorded
+    t0 = time.perf_counter()
+    try:
+        cfg = pre_launch_callbacks.AutoTrainBatchSizeSelectionCallback(
+            min_batch_size=SURFACE_LADDER[0], max_batch_size=SURFACE_LADDER[1], hbm_budget_gb=SURFACE_BUDGET_GB)(
+            recipe, model=model, loss_fn=loss_fn, image_hw=(640, 640))
+    finally:
+        pre_launch_callbacks.estimate_train_step_memory_gb = probe
+    chosen = cfg["dataset_params"]["train_dataloader_params"]["batch_size"]
+    fitting = [bs for bs, gb in readings.items() if gb is not None and gb <= SURFACE_BUDGET_GB]
+    check(fitting and chosen == max(fitting), f"probe readings {readings}, chosen batch {chosen}")
+    check(abs(cfg["training_hyperparams"]["initial_lr"] - 2e-4 * chosen / 16) < 1e-12, "the LR was not scaled linearly")
+    check(all(readings[a] < readings[b] for a, b in zip(fitting, fitting[1:])), f"peak memory not rising: {readings}")
+    print(f"[12] AutoTrainBatchSizeSelectionCallback, yolo_nas_m 640 fp32 forward + backward, ladder "
+          f"{SURFACE_LADDER[0]}-{SURFACE_LADDER[1]}, budget {SURFACE_BUDGET_GB} GB: peak GB by batch "
+          + json.dumps({bs: None if gb is None else round(gb, 3) for bs, gb in readings.items()})
+          + f"; chosen batch {chosen}, initial_lr 2e-4 -> {cfg['training_hyperparams']['initial_lr']:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches = nms_exact.exact_nms_keep.launches
+    print(f"[12] phase seconds: {time.perf_counter() - t_phase:.1f}; K1 launches in the phase: {launches}")
+    del model, cpu_model
     torch.cuda.empty_cache()
     return launches
 
@@ -1151,6 +1427,9 @@ def main():
         max_err = max(max_err, phase_validation_timing(torch, np, models, nms_exact))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
         recipe_launches = phase_recipe(torch, np, nms_exact, os.path.join(root, "ckpt"), os.path.join(root, "rf100"))
+        os.makedirs(os.path.join(root, "surface"))
+        surface_launches = phase_surface(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou),
+                                         os.path.join(root, "rf100"), os.path.join(root, "surface"))
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1158,7 +1437,7 @@ def main():
     k1 = timings[8, 1024]  # the predict path's shape, every candidate valid
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches + train_launches + recipe_launches, "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "launches": launches + train_launches + recipe_launches + surface_launches, "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)
     }]}))

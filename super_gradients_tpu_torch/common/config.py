@@ -7,6 +7,12 @@ body winning, applies dotted ``a.b=v`` overrides, resolves ``${a.b}``
 interpolations and expands the flat shortcuts (``lr=``, ``batch_size=``,
 ``epochs=``, ...). Recipes are plain nested dicts.
 
+``load_arch_params(name)`` reads an ``arch_params/`` group file (the YOLO-NAS S / M / L
+module-spec trees, which ``models.get(..., arch_params=...)`` builds from).
+:class:`HpmStruct` is an attribute-access parameter struct, and
+:class:`raise_if_unused_params` a context manager that raises when a config key was
+never read.
+
 The built-in recipes are the port's own copies in ``super_gradients_tpu_torch/recipes/``,
 byte-equal to the JAX package's files of the same name. PyYAML is imported where a
 file or an override value is parsed, never at import time: without it those calls
@@ -206,3 +212,90 @@ def add_params_to_cfg(cfg: Dict, params: Sequence[str]) -> Dict:
             node = node.setdefault(part, {})
         node[parts[-1]] = parsed
     return out
+
+
+def load_arch_params(config_name: str, recipes_dir_path: Optional[str] = None,
+                     overriding_params: Optional[Dict] = None) -> Dict:
+    """An ``arch_params/`` group file, e.g. ``load_arch_params("yolo_nas_s_arch_params")``:
+    its ``defaults:`` entries merged under it, then ``overriding_params`` on top."""
+    base = recipes_dir_path or _PKG_RECIPE_DIR
+    params = _load_yaml(_resolve_group_file(base, "arch_params", config_name))
+    for entry in params.pop("defaults", []):
+        if entry == "_self_":
+            continue
+        params = deep_merge(load_arch_params(str(entry), recipes_dir_path=recipes_dir_path), params)
+    params.update(overriding_params or {})
+    return resolve_interpolations(params)
+
+
+class HpmStruct:
+    """Attribute-access hyper-parameter struct."""
+
+    def __init__(self, **entries):
+        self.__dict__.update(entries)
+
+    def set_schema(self, schema):
+        self.__dict__["_schema"] = schema
+
+    def override(self, **entries):
+        self.__dict__.update(entries)
+        return self
+
+    def to_dict(self, include_schema: bool = False) -> Dict:
+        return {k: v for k, v in self.__dict__.items() if include_schema or k != "_schema"}
+
+    def get(self, key, default=None):
+        return self.__dict__.get(key, default)
+
+    def __contains__(self, key):
+        return key in self.__dict__
+
+    def __repr__(self):
+        return f"HpmStruct({self.to_dict()!r})"
+
+
+class _TrackedDict(dict):
+    """A dict that records every key read through it (as ``prefix.key``); a nested dict
+    read through it comes back tracked too."""
+
+    def __init__(self, data: Dict, used: set, prefix: str):
+        super().__init__(data)
+        self._used = used
+        self._prefix = prefix
+
+    def __getitem__(self, key):
+        self._used.add(self._prefix + str(key))
+        v = super().__getitem__(key)
+        if isinstance(v, dict) and not isinstance(v, _TrackedDict):
+            return _TrackedDict(v, self._used, self._prefix + str(key) + ".")
+        return v
+
+    def get(self, key, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+
+class UnusedConfigParamError(ValueError):
+    pass
+
+
+class raise_if_unused_params:
+    """Context manager over a config dict: on a clean exit it raises
+    :class:`UnusedConfigParamError` naming every top-level key that was never read."""
+
+    def __init__(self, cfg: Dict):
+        self._used: set = set()
+        self.cfg = _TrackedDict(cfg, self._used, "")
+        self._keys = set(map(str, cfg.keys()))
+
+    def __enter__(self):
+        return self.cfg
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            unused = self._keys - {u.split(".")[0] for u in self._used}
+            if unused:
+                raise UnusedConfigParamError(f"Unused config params: {sorted(unused)}")
+        return False

@@ -3,7 +3,8 @@
 ``base_sg_logger`` writes scalars, config and text as JSON lines to
 ``<checkpoints dir>/events.jsonl``, and to TensorBoard event files under
 ``<checkpoints dir>/tensorboard`` where ``torch.utils.tensorboard`` imports.
-Images go to TensorBoard only (the JAX logger's PNG copy needs an image library).
+Images go to TensorBoard and, as the JAX logger writes them, to PNG files under
+``<checkpoints dir>/images`` (PIL imported at the call).
 ``monitor_system`` and the remote loggers are not ported and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -95,8 +96,24 @@ class BaseSGLogger(AbstractSGLogger):
             self._tb.add_scalar(tag, float(value), int(global_step))
 
     def add_image(self, tag: str, image: np.ndarray, global_step: int = 0):
+        """An HWC image to TensorBoard, and as ``images/<tag>_step<N>.png`` beside the
+        checkpoints (through PIL, imported here; without PIL only TensorBoard gets it)."""
         if self._tb is not None:
             self._tb.add_image(tag, image, int(global_step), dataformats="HWC")
+        if self._jsonl is None:  # not the primary process
+            return
+        try:
+            from PIL import Image
+        except ImportError:
+            logger.debug("add_image: PIL is not installed; no PNG written")
+            return
+        img_dir = os.path.join(self.dir, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        safe = tag.replace("/", "_").replace(" ", "_")
+        arr = np.asarray(image)
+        if arr.dtype != np.uint8:
+            arr = np.clip(arr, 0, 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(img_dir, f"{safe}_step{int(global_step)}.png"))
 
     def add_text(self, tag: str, text: str, global_step: int = 0):
         if self._jsonl:

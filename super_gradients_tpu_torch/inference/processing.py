@@ -1,10 +1,12 @@
 """Host-side image processing for predict (the subset of
 ``super_gradients_tpu/inference/processing.py`` that YOLO-NAS COCO processing uses).
 
-numpy in, numpy out, one image at a time. The bilinear resize is
-``F.interpolate(mode="bilinear", align_corners=False, antialias=False)`` rounded
-back to uint8, in place of cv2's ``INTER_LINEAR`` (the same half-pixel sampling;
-cv2's fixed-point weights make the two differ by at most one grey level).
+numpy in, numpy out, one image at a time. The letterbox resize is the JAX
+package's call, ``cv2.resize(..., INTER_LINEAR)``, wherever cv2 imports (cv2 is
+imported at the call, never with the module). Without cv2 it is
+:func:`resize_bilinear`, ``F.interpolate(mode="bilinear", align_corners=False,
+antialias=False)`` rounded back to uint8: the same half-pixel sampling, within one
+grey level of cv2 (whose fixed-point weights round differently).
 """
 
 from __future__ import annotations
@@ -35,8 +37,28 @@ class Processing:
         return boxes
 
 
+def cv2_module():
+    """The cv2 module where it imports, else None. The port's image code takes the JAX
+    package's cv2 calls where it can, and its numpy / torch stand-ins only without cv2."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def resize(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an HWC uint8 image to ``out_hw``: ``cv2.resize(INTER_LINEAR)``,
+    or :func:`resize_bilinear` without cv2."""
+    cv2 = cv2_module()
+    if cv2 is None:
+        return resize_bilinear(image, out_hw)
+    return cv2.resize(image, dsize=(out_hw[1], out_hw[0]), interpolation=cv2.INTER_LINEAR)
+
+
 def resize_bilinear(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of an HWC uint8 image (half-pixel centers, no antialias)."""
+    """Bilinear resize of an HWC uint8 image (half-pixel centers, no antialias), in torch:
+    the stand-in for cv2's ``INTER_LINEAR``, within one grey level of it."""
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None].float()
     y = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False, antialias=False)
     return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
@@ -53,7 +75,7 @@ class DetectionLongestMaxSizeRescale(Processing):
         th, tw = self.output_shape
         scale = min(th / h, tw / w)
         if scale != 1.0:
-            image = resize_bilinear(image, (round(h * scale), round(w * scale)))
+            image = resize(image, (round(h * scale), round(w * scale)))
         return image, ProcessingMetadata(scale=scale, original_hw=(h, w))
 
     def postprocess_boxes(self, boxes, meta):

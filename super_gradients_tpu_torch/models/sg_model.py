@@ -5,7 +5,8 @@ The JAX package compiles preprocess-forward-decode-NMS into one XLA program per
 shape. Here the same steps run eagerly: host processing per image (numpy), then
 per batch one forward of the deploy-form network on the model's device, the
 fp32 decode, and ``batched_nms`` whose exact mode is the hand-written CUDA
-kernel K1 on a GPU.
+kernel K1 on a GPU. ``predict`` takes arrays, PIL images, image files, folders and
+video files (``predict_video``); ``predict_webcam`` runs on a capture device.
 """
 
 from __future__ import annotations
@@ -18,8 +19,13 @@ import torch
 from torch import nn
 
 from super_gradients_tpu_torch.inference.media import images_to_list
-from super_gradients_tpu_torch.inference.prediction_results import DetectionPrediction, ImagesPredictions
+from super_gradients_tpu_torch.inference.prediction_results import (
+    DetectionPrediction,
+    ImagesPredictions,
+    VideoPredictions,
+)
 from super_gradients_tpu_torch.inference.processing import Processing
+from super_gradients_tpu_torch.inference.video import includes_video_extension, lazy_load_video
 from super_gradients_tpu_torch.modules.blocks import QARepVGGBlock
 from super_gradients_tpu_torch.ops.nms import NMSOutput, batched_nms
 
@@ -50,6 +56,32 @@ class SgModel:
 
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
+
+    def predict_video(self, video_path: str, batch_size: int = 32, max_frames: Optional[int] = None,
+                      **kwargs) -> VideoPredictions:
+        """``predict`` over a video file's frames, read lazily in chunks of ``batch_size``;
+        the result's ``save()`` writes the drawn video at the source frame rate."""
+        frames, fps, _ = lazy_load_video(video_path, max_frames)
+        preds: list = []
+        buf: list = []
+        for f in frames:
+            buf.append(f)
+            if len(buf) == batch_size:
+                preds.extend(self.predict(buf, batch_size=batch_size, **kwargs))
+                buf = []
+        if buf:
+            preds.extend(self.predict(buf, batch_size=batch_size, **kwargs))
+        return VideoPredictions(preds, fps)
+
+    def predict_webcam(self, capture: int = 0, **kwargs) -> None:
+        """Predict and draw each frame of a capture device live; ``q`` quits."""
+        from super_gradients_tpu_torch.inference.stream import WebcamStreaming
+
+        def process(frame):
+            return self.predict([frame], batch_size=1, **kwargs)[0].draw()
+
+        WebcamStreaming(window_name=f"{type(self).__name__} predictions", frame_processing_fn=process,
+                        capture=capture).run()
 
     def load_state_dict(self, state_dict: Dict[str, torch.Tensor]) -> None:
         """Load new weights into ``net`` (strict) and drop every copy derived from the
@@ -150,10 +182,18 @@ class DetectionModel(SgModel):
         bf16: bool = True,
         nms_prefilter: str = "two_stage",
     ) -> ImagesPredictions:
-        """Predict on numpy RGB uint8 images (HWC, NHWC or a list of HWC of any sizes).
+        """Predict on RGB images of any sizes: an HWC / NHWC array, a PIL image, an image
+        file, a folder of them or a list of these (``inference/media.py``), or a video file
+        (``predict_video``, a :class:`VideoPredictions`).
 
         Returns per-image :class:`DetectionPrediction`s in original-image pixels.
         """
+        if isinstance(images, str) and includes_video_extension(images):
+            return self.predict_video(
+                images, batch_size=batch_size, iou=iou, conf=conf, max_predictions=max_predictions,
+                nms_top_k=nms_top_k, multi_label_per_box=multi_label_per_box, class_agnostic_nms=class_agnostic_nms,
+                nms_mode=nms_mode, fuse_model=fuse_model, bf16=bf16,
+            )
         iou = iou if iou is not None else self._default_nms_iou
         conf = conf if conf is not None else self._default_nms_conf
         max_predictions = max_predictions or self._default_max_predictions

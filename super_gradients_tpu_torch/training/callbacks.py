@@ -3,9 +3,11 @@
 ``Trainer.train`` calls a :class:`CallbackHandler`'s ``on_*`` events at the same
 points of its loop as the JAX trainer, with one mutable :class:`PhaseContext`.
 Ported: the event protocol, ``EarlyStop``, ``TimerCallback``, ``LRCallbackBase``,
-``ProfilerCallback`` (on ``torch.profiler``) and ``PPYoloETrainingStageSwitchCallback``.
-Names the JAX package registers beyond these are listed in :data:`NOT_PORTED`
-with their ROADMAP item; resolving one raises ``KeyError``.
+``ProfilerCallback`` (on ``torch.profiler``), ``PPYoloETrainingStageSwitchCallback``
+and the detection visualization callbacks, which draw a batch's predictions
+(``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
+package registers beyond these are listed in :data:`NOT_PORTED` with their ROADMAP
+item; resolving one raises ``KeyError``.
 """
 
 from __future__ import annotations
@@ -19,15 +21,17 @@ from typing import Any, Dict, Optional, Sequence
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import CALLBACKS, register_callback
+from super_gradients_tpu_torch.inference.prediction_results import DetectionPrediction
+from super_gradients_tpu_torch.ops.nms import NMSOutput, batched_nms
+from super_gradients_tpu_torch.training.dataloaders import loader_max_value
 
 logger = logging.getLogger(__name__)
 
-_VISUALIZATION = "ROADMAP.md queue 1, 'Training leftovers' (visualization needs an image library)"
+_SEGMENTATION = "ROADMAP.md queue 1, 'Breadth' (segmentation)"
 NOT_PORTED = {
-    **dict.fromkeys(("DetectionVisualizationCallback", "ExtremeBatchDetectionVisualizationCallback",
-                     "SegmentationVisualizationCallback", "ExtremeBatchSegVisualizationCallback"), _VISUALIZATION),
+    **dict.fromkeys(("SegmentationVisualizationCallback", "ExtremeBatchSegVisualizationCallback"), _SEGMENTATION),
     "ModelConversionCheckCallback": "ROADMAP.md queue 1, 'Deployment and scale-out' (export)",
-    "SlidingWindowValidationCallback": "ROADMAP.md queue 1, 'Breadth' (segmentation)",
+    "SlidingWindowValidationCallback": _SEGMENTATION,
     "YoloXTrainingStageSwitchCallback": "ROADMAP.md queue 1, 'Breadth' (YOLOX loss)",
 }
 
@@ -70,6 +74,7 @@ class PhaseContext:
         self.train_batch = None  # host-side (inputs, targets) of the current train batch
         self.step_metrics = None  # {"loss", "lr"} of the last train step; the loss a device tensor
         self.criterion = None  # the loss the train step runs (rebuilt by a stage switch)
+        self.eval_net = None  # the trained weights (the EMA's when there is one) in eval mode, from each epoch's end
         self._criterion_updates: Dict[str, Any] = {}
         self.__dict__.update(kwargs)
 
@@ -310,3 +315,114 @@ class PPYoloETrainingStageSwitchCallback(Callback):
             context.update_criterion_params(use_static_assigner=False)
             logger.info(f"PPYoloE stage switch at epoch {context.epoch}: static assigner -> TAL")
             self._done = True
+
+
+# ---------------------------------------------------------------- visualization
+
+
+def detect_for_visualization(net, images, max_value: Optional[float], conf: float):
+    """A host batch ``[B, 3, H, W]`` (uint8 or standardized float) through ``net`` in eval
+    mode on its device, as the trainer feeds it, then exact NMS (K1 on a GPU) with the JAX
+    callbacks' settings (IoU 0.7, 256 candidates, 100 detections). Returns the
+    standardized images ``[B, H, W, 3]`` on the host and the :class:`NMSOutput`."""
+    import torch
+
+    from super_gradients_tpu_torch.training.trainer import _images_to_device
+
+    x = _images_to_device(images, next(net.parameters()).device, max_value)
+    with torch.inference_mode():
+        out = net(x)
+        nms = batched_nms(out.pred_bboxes.float(), out.pred_scores.float(), score_threshold=conf, iou_threshold=0.7,
+                          nms_top_k=256, max_predictions=100, mode="exact")
+    return x.permute(0, 2, 3, 1).float().cpu().numpy(), NMSOutput(*(t.cpu() for t in nms))
+
+
+def draw_detections(model, images, nms: NMSOutput):
+    """Each image's drawn :class:`DetectionPrediction` (the image scaled to uint8 as the
+    JAX callbacks scale it)."""
+    import numpy as np
+
+    drawn = []
+    for j in range(images.shape[0]):
+        n = int(nms.num_detections[j])
+        img = images[j]
+        img_u8 = np.clip(img * 255.0 if img.max() <= 1.5 else img, 0, 255).astype(np.uint8)
+        pred = DetectionPrediction(bboxes_xyxy=nms.boxes[j, :n].numpy(), confidence=nms.scores[j, :n].numpy(),
+                                   labels=nms.labels[j, :n].numpy(), class_names=getattr(model, "_class_names", None),
+                                   image=img_u8)
+        drawn.append(pred.draw())
+    return drawn
+
+
+@register_callback("DetectionVisualizationCallback")
+class DetectionVisualizationCallback(Callback):
+    """Draw the predictions of the trained network on the ``batch_idx``-th validation
+    batch every ``freq`` epochs, up to ``max_images``, into the logger's ``add_image``."""
+
+    def __init__(self, freq: int = 1, batch_idx: int = 0, max_images: int = 4, conf: float = 0.25):
+        self.freq = freq
+        self.batch_idx = batch_idx
+        self.max_images = max_images
+        self.conf = conf
+
+    def on_validation_batch_end(self, context: PhaseContext):
+        if context.epoch % self.freq != 0 or context.batch_idx != self.batch_idx or context.valid_batch is None:
+            return
+        model = context.model
+        if getattr(model, "task", None) != "detection":
+            return
+        images, nms = detect_for_visualization(context.eval_net, context.valid_batch[0][: self.max_images],
+                                               loader_max_value(context.valid_loader), self.conf)
+        for j, drawn in enumerate(draw_detections(model, images, nms)):
+            if context.sg_logger is not None:
+                context.sg_logger.add_image(f"valid_detections/img{j}", drawn, context.epoch)
+
+
+class ExtremeBatchCaseVisualizationCallback(Callback):
+    """Keep the train batch of the largest (``max_``) or smallest loss of an epoch and
+    visualize it at the epoch's end. Reading each step's loss syncs with the device once
+    a step: the price of the feature."""
+
+    def __init__(self, max_: bool = True, freq: int = 1, max_images: int = 4):
+        self.max_ = max_
+        self.freq = freq
+        self.max_images = max_images
+        self._extreme_loss = None
+        self._extreme_batch = None
+
+    def on_train_loader_start(self, context: PhaseContext):
+        self._extreme_loss, self._extreme_batch = None, None
+
+    def on_train_batch_end(self, context: PhaseContext):
+        if context.epoch % self.freq != 0 or context.step_metrics is None or context.train_batch is None:
+            return
+        loss = float(context.step_metrics["loss"])
+        if self._extreme_loss is None or (loss > self._extreme_loss if self.max_ else loss < self._extreme_loss):
+            self._extreme_loss = loss
+            self._extreme_batch = context.train_batch
+
+    def on_train_loader_end(self, context: PhaseContext):
+        if self._extreme_batch is None or context.epoch % self.freq != 0:
+            return
+        self._visualize(context, self._extreme_batch, self._extreme_loss)
+
+    def _visualize(self, context, batch, loss):
+        pass
+
+    def _tag(self):
+        return f"extreme_batch_{'max' if self.max_ else 'min'}_loss"
+
+
+@register_callback("ExtremeBatchDetectionVisualizationCallback")
+class ExtremeBatchDetectionVisualizationCallback(ExtremeBatchCaseVisualizationCallback):
+    """The extreme-loss train batch's predictions, drawn by the epoch's trained network."""
+
+    def _visualize(self, context, batch, loss):
+        model = context.model
+        if getattr(model, "task", None) != "detection":
+            return
+        images, nms = detect_for_visualization(context.eval_net, batch[0][: self.max_images],
+                                               loader_max_value(context.train_loader), 0.25)
+        for j, drawn in enumerate(draw_detections(model, images, nms)):
+            if context.sg_logger is not None:
+                context.sg_logger.add_image(f"{self._tag()}/img{j} (loss={loss:.3f})", drawn, context.epoch)

@@ -2,11 +2,12 @@
 
 :class:`DataLoader` is a ``torch.utils.data.DataLoader`` that draws its indices in
 the JAX loader's order (``RandomState(seed + epoch).shuffle``, a small dataset tiled
-up to ``min_samples``), pins its batches when CUDA is present and keeps its worker
-processes across epochs. Workers reseed the dataset's generators from their worker
-seed, which comes from ``seed``: two loaders with the same seed and worker count
-yield the same batches. A loader whose workers cannot start raises; it does not
-fall back to loading in the main process.
+up to ``min_samples``), or from a ``sampler=`` of ``training/samplers.py``, pins its
+batches when CUDA is present and keeps its worker processes across epochs. Workers
+reseed the dataset's generators from their worker seed, which comes from ``seed``:
+two loaders with the same seed and worker count yield the same batches. A loader
+whose workers cannot start raises; it does not fall back to loading in the main
+process.
 
 ``get(name, dataset_params, dataloader_params)`` builds a registered loader:
 ``coco2017_train_yolo_nas`` / ``coco2017_val_yolo_nas``, ``roboflow_train`` /
@@ -93,25 +94,36 @@ class EpochSampler(torch.utils.data.Sampler):
 
 
 def _seed_worker(worker_id: int) -> None:
-    """Reseed the worker's copy of the dataset from the worker's seed."""
+    """Reseed the worker's copy of the dataset from the worker's seed. cv2 keeps its own
+    thread pool in a worker, as in the JAX loader's workers (``chip_smoke.py`` phase 11
+    times it against cv2 run sequentially: ``PERF.md`` section 5)."""
     info = torch.utils.data.get_worker_info()
     reseed = getattr(info.dataset, "reseed", None)
     if reseed is not None:
         reseed(info.seed)
 
 
+def loader_max_value(loader) -> Optional[float]:
+    """What a loader's uint8 images are divided by: its ``max_value``, or failing that
+    its dataset's (a plain ``torch.utils.data.DataLoader`` has none of its own)."""
+    value = getattr(loader, "max_value", None)
+    return value if value is not None else getattr(getattr(loader, "dataset", None), "max_value", None)
+
+
 class DataLoader(torch.utils.data.DataLoader):
-    """A torch DataLoader over an :class:`EpochSampler`, with ``set_epoch`` and the
-    dataset's ``max_value`` (None when its images are already standardized)."""
+    """A torch DataLoader over an :class:`EpochSampler` (or over ``sampler``, which then
+    sets the order alone: ``shuffle`` and ``min_samples`` are not used), with
+    ``set_epoch`` and the dataset's ``max_value`` (None when its images are already
+    standardized)."""
 
     def __init__(self, dataset, batch_size: int = 32, shuffle: bool = False, drop_last: bool = True,
                  collate_fn: Optional[Callable] = None, seed: int = 0, min_samples: Optional[int] = None,
-                 num_workers: int = 0, prefetch_factor: int = 2):
+                 sampler=None, num_workers: int = 0, prefetch_factor: int = 2):
         num_workers = int(num_workers)
         super().__init__(
             dataset,
             batch_size=int(batch_size),
-            sampler=EpochSampler(len(dataset), shuffle, seed, min_samples),
+            sampler=sampler if sampler is not None else EpochSampler(len(dataset), shuffle, seed, min_samples),
             drop_last=drop_last,
             collate_fn=collate_fn,
             num_workers=num_workers,
@@ -123,7 +135,8 @@ class DataLoader(torch.utils.data.DataLoader):
         )
 
     def set_epoch(self, epoch: int) -> None:
-        self.sampler.set_epoch(epoch)
+        if hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)
 
     @property
     def max_value(self) -> Optional[float]:

@@ -187,8 +187,53 @@ class DetectionDataset:
         return params
 
     def plot(self, max_samples_per_plot: int = 16, plot_transformed_data: bool = True):
-        raise NotImplementedError("DetectionDataset.plot draws with an image library; not ported yet "
-                                  "(ROADMAP.md queue 1, 'Predict-path leftovers': drawing)")
+        """A grid of the first samples (transformed, or as read) with their boxes drawn in
+        red, as an RGB uint8 array; shown too when matplotlib has an interactive backend.
+        A transformed sample is drawn from its standardized image, as the JAX dataset
+        yields it: ``uint8(clip(x / max_value, 0, 1) * 255)``. PIL is imported here."""
+        from PIL import Image, ImageDraw
+
+        n = min(len(self), max_samples_per_plot)
+        drawn = []
+        for i in range(n):
+            if plot_transformed_data:
+                image, target = self[i]
+                arr = image.transpose(1, 2, 0)
+                if self.max_value is not None:
+                    arr = np.multiply(arr, np.float32(1.0 / self.max_value), dtype=np.float32)
+                boxes = target[target[:, 0] >= 0][:, 1:5]
+            else:
+                s = self._get_sample(i)
+                arr, boxes = s.image, s.bboxes_xyxy
+            arr = np.asarray(arr)
+            if arr.dtype != np.uint8:
+                arr = (np.clip(arr, 0, 1) * 255).astype(np.uint8)
+            im = Image.fromarray(np.ascontiguousarray(arr))
+            d = ImageDraw.Draw(im)
+            for b in np.asarray(boxes):
+                d.rectangle([float(b[0]), float(b[1]), float(b[2]), float(b[3])], outline=(255, 0, 0), width=2)
+            drawn.append(np.asarray(im))
+        if not drawn:
+            return None
+        cols = int(np.ceil(np.sqrt(n)))
+        rows = int(np.ceil(n / cols))
+        h, w, c = drawn[0].shape
+        grid = np.zeros((rows * h, cols * w, c), np.uint8)
+        for i, im in enumerate(drawn):
+            r, cc = divmod(i, cols)
+            grid[r * h : (r + 1) * h, cc * w : (cc + 1) * w] = im
+        try:
+            import matplotlib
+        except ImportError:
+            return grid
+        if matplotlib.get_backend().lower() not in ("agg", "template"):
+            import matplotlib.pyplot as plt
+
+            plt.figure(figsize=(10, 10))
+            plt.imshow(grid)
+            plt.axis("off")
+            plt.show()
+        return grid
 
     def get_dataset_classes_information(self) -> np.ndarray:
         """[N, num_classes] per-sample class counts."""

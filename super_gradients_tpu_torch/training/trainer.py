@@ -17,7 +17,9 @@ outputs cast to fp32 before the loss and the metrics; ``DetectionMetrics`` runs
 ``.pth`` checkpoints (``ckpt_latest``, ``ckpt_best``, ``ckpt_epoch_N``,
 ``average_model``) in ``<ckpt_root_dir>/<experiment>/RUN_<ts>/`` with
 ``recipe.json``, and ``resume``. ``evaluate`` and ``test`` run the eval loop alone.
-A uint8 batch, from a loader with a ``max_value``, is standardized on the device.
+A uint8 batch is standardized on the device by the ``max_value`` of its loader, or
+failing that of the loader's dataset (so a plain ``torch.utils.data.DataLoader`` over a
+port dataset trains).
 
 From a recipe: ``Trainer.train_from_config(cfg)`` builds the recipe's model (on its
 ``device``, the GPU by default) and loaders and trains; ``evaluate_checkpoint`` and
@@ -54,6 +56,7 @@ from super_gradients_tpu_torch.training.losses import get_loss
 from super_gradients_tpu_torch.training.metrics import MetricCollection, get_metric, to_host
 from super_gradients_tpu_torch.training.mixed_precision import autocast, to_f32
 from super_gradients_tpu_torch.training.optimizers import build_optimizer
+from super_gradients_tpu_torch.training.pre_launch_callbacks import resolve_pre_launch_callback
 from super_gradients_tpu_torch.training.schedules import build_lr_schedule
 from super_gradients_tpu_torch.training.train_state import TrainState
 
@@ -150,18 +153,24 @@ def _metrics_view(out):
     return out.student_output if hasattr(out, "student_output") else out
 
 
-def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device, max_value: Optional[float] = None):
-    """A host batch onto the device: pinned copies ``non_blocking``, images channels_last on a
-    GPU. A uint8 batch is standardized there, ``x * float32(1 / max_value)`` in float32,
+def _images_to_device(images: torch.Tensor, device: torch.device, max_value: Optional[float] = None) -> torch.Tensor:
+    """A host image batch onto the device: a pinned copy ``non_blocking``, channels_last on
+    a GPU. A uint8 batch is standardized there, ``x * float32(1 / max_value)`` in float32,
     bit-equal to the host's ``DetectionStandardize``; a float batch passes unchanged."""
     images = images.to(device, non_blocking=True)
     if images.dtype == torch.uint8:
         if max_value is None:
-            raise ValueError("a uint8 image batch needs its loader's `max_value` to be standardized on the device")
+            raise ValueError("a uint8 image batch needs a `max_value` on its loader or its loader's dataset "
+                             "to be standardized on the device")
         images = images.float().mul_(float(np.float32(1.0 / max_value)))
     if device.type == "cuda":
         images = images.contiguous(memory_format=torch.channels_last)
-    return images, targets.to(device, non_blocking=True)
+    return images
+
+
+def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device, max_value: Optional[float] = None):
+    """A host batch onto the device: :func:`_images_to_device` and the targets as they are."""
+    return _images_to_device(images, device, max_value), targets.to(device, non_blocking=True)
 
 
 class TrainStep:
@@ -389,8 +398,8 @@ class Trainer:
         max_valid_batches = tp.get("max_valid_batches")
         # host-sync cadence: the running loss and LR reach the context every N batches only
         sync_every = int(tp.get("train_logging_frequency") or 50)
-        eval_net = None  # built at the first validation or test
-        train_max_value = getattr(train_loader, "max_value", None)
+        eval_net = None  # built at the end of the first epoch
+        train_max_value = dataloaders.loader_max_value(train_loader)
 
         try:
             for epoch in range(start_epoch, max_epochs):
@@ -441,7 +450,9 @@ class Trainer:
                 if has_train_metrics:
                     self.train_metrics_history.append(train_results)
                 context.metrics_dict.update({f"Train_{k}": v for k, v in train_results.items()})
-                context.update_context(train_state=state)
+                # the epoch's trained network, for the visualization callbacks, validation and tests
+                eval_net = self._refresh_eval_net(eval_net, state)
+                context.update_context(train_state=state, eval_net=eval_net)
                 handler.on_train_loader_end(context)
 
                 # ---------- validation ----------
@@ -450,8 +461,6 @@ class Trainer:
                 valid_results: Dict[str, float] = {}
                 if should_validate:
                     handler.on_validation_loader_start(context)
-                    eval_net = self._refresh_eval_net(eval_net, state)
-                    context.update_context(eval_net=eval_net)
                     valid_results = self._run_eval_loop(eval_net, step.criterion, valid_metrics, valid_loader, device,
                                                         step.mixed_precision, max_valid_batches, handler, context)
                     self.valid_metrics_history.append(valid_results)
@@ -462,7 +471,6 @@ class Trainer:
                 test_results: Dict[str, Dict[str, float]] = {}
                 should_test = test_loaders and ((epoch + 1) % run_test_freq == 0 or epoch == max_epochs - 1)
                 if should_test:
-                    eval_net = self._refresh_eval_net(eval_net, state)
                     for tname, tloader in test_loaders.items():
                         res = self._run_eval_loop(eval_net, step.criterion, valid_metrics, tloader, device,
                                                   step.mixed_precision, max_valid_batches, None, context)
@@ -534,7 +542,7 @@ class Trainer:
                 break
             if context is not None:
                 context.update_context(batch_idx=vidx, valid_batch=batch)
-            images, targets = _to_device(batch[0], batch[1], device, getattr(loader, "max_value", None))
+            images, targets = _to_device(batch[0], batch[1], device, dataloaders.loader_max_value(loader))
             with torch.inference_mode():
                 with autocast(device, mixed_precision):
                     outputs = net(images)
@@ -672,14 +680,10 @@ class Trainer:
 
     @staticmethod
     def _trigger_cfg_modifying_callbacks(cfg: Dict) -> Dict:
-        """Run the recipe's ``pre_launch_callbacks_list`` over it before anything is built.
-        Only callables run: no callback is ported under a name yet."""
+        """Run the recipe's ``pre_launch_callbacks_list`` over it before anything is built:
+        each entry a name, ``{name: params}`` or a callable, as the JAX trainer resolves them."""
         for entry in cfg.get("pre_launch_callbacks_list") or []:
-            if isinstance(entry, (str, dict)):
-                name = entry if isinstance(entry, str) else next(iter(entry))
-                raise KeyError(f"pre-launch callback `{name}` is not ported yet "
-                               f"(ROADMAP.md queue 1, item 3: pre-launch callbacks)")
-            cfg = entry(cfg) or cfg
+            cfg = resolve_pre_launch_callback(entry)(cfg) or cfg
         return cfg
 
     @staticmethod

@@ -1,21 +1,33 @@
 """Detection transforms (counterpart of ``super_gradients_tpu/training/transforms/detection.py``).
 
-Host-side augmentation on numpy HWC images, without cv2 or PIL:
+Host-side augmentation on numpy HWC images. Wherever cv2 imports (at the call, through
+``inference/processing.py::cv2_module``), the image operations are the JAX package's
+own cv2 calls, with its flags, border values and LUTs, so images come out byte-equal:
+
+- resize: ``cv2.resize(INTER_LINEAR)``;
+- affine warp: ``cv2.warpAffine(INTER_LINEAR, BORDER_CONSTANT, border_value)`` of the
+  forward matrix;
+- HSV: ``cv2.cvtColor`` to HSV, ``cv2.LUT`` on each channel, ``cv2.cvtColor`` back;
+- mixup of uint8 images: ``cv2.addWeighted(a, .5, b, .5, 0)``.
+
+Without cv2 each runs its numpy / torch stand-in, within a grey level or so of cv2:
 
 - resize: ``inference/processing.py::resize_bilinear`` (``F.interpolate``, half-pixel
-  centres, no antialias, rounded to uint8), within one grey level of cv2's
-  ``INTER_LINEAR``;
-- affine warp: a bilinear sample of the source at ``M^-1 (x, y, 1)`` for every output
-  pixel centre (``F.grid_sample``, ``align_corners=True``). Sampling ``image - border``
-  with zero padding and adding ``border`` back gives cv2's constant border exactly;
-- HSV: cv2's uint8 conversions (H in [0, 180), the integer RGB->HSV of
-  ``RGB2HSV_b`` and the float32 HSV->RGB of ``HSV2RGB_b``) around the JAX package's LUTs;
-- mixup: ``cv2.addWeighted(a, .5, b, .5, 0)`` on uint8, which rounds half to even.
+  centres, no antialias, rounded to uint8), within one grey level of ``INTER_LINEAR``;
+- affine warp: :func:`warp_affine`, a bilinear sample of the source at
+  ``M^-1 (x, y, 1)`` for every output pixel centre (``F.grid_sample``,
+  ``align_corners=True``). Sampling ``image - border`` with zero padding and adding
+  ``border`` back gives cv2's constant border exactly;
+- HSV: cv2's uint8 conversions (H in [0, 180), the integer RGB->HSV of ``RGB2HSV_b`` in
+  :func:`rgb_to_hsv_u8` and the float32 HSV->RGB of ``HSV2RGB_b`` in
+  :func:`hsv_to_rgb_u8`) around the same LUTs;
+- mixup: :func:`add_weighted_half`, ``addWeighted``'s rounding half to even.
 
 Every random decision draws from the ``random.Random`` passed in as ``rng``, in the
-order in which the JAX transform draws from the global ``random``: for the same seed
-the boxes, labels and crowd flags are exactly equal. Transforms that need extra images
-(mosaic, mixup) declare ``additional_samples_count`` and get them from the dataset.
+order in which the JAX transform draws from the global ``random``, on either path: for
+the same seed the boxes, labels and crowd flags are exactly equal. Transforms that need
+extra images (mosaic, mixup) declare ``additional_samples_count`` and get them from the
+dataset.
 """
 
 from __future__ import annotations
@@ -29,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from super_gradients_tpu_torch.inference.processing import resize_bilinear
+from super_gradients_tpu_torch.inference import processing
 
 
 @dataclasses.dataclass
@@ -63,7 +75,7 @@ class DetectionTransform:
 
 
 def _resize(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    return resize_bilinear(image.astype(np.uint8), out_hw)
+    return processing.resize(image.astype(np.uint8), out_hw)
 
 
 def warp_affine(image: np.ndarray, m: np.ndarray, out_hw: Tuple[int, int], border_value: int) -> np.ndarray:
@@ -187,13 +199,22 @@ class DetectionHSV(DetectionTransform):
         dh = rng.uniform(-self.hgain, self.hgain)
         ds = rng.uniform(-self.sgain, self.sgain)
         dv = rng.uniform(-self.vgain, self.vgain)
-        hsv = rgb_to_hsv_u8(sample.image.astype(np.uint8))
         idx = np.arange(256, dtype=np.int16)
         lut_h = ((idx + int(round(dh))) % 180).astype(np.uint8)
         lut_s = np.clip(idx + ds, 0, 255).astype(np.uint8)
         lut_v = np.clip(idx + dv, 0, 255).astype(np.uint8)
-        hsv = np.stack([lut_h[hsv[..., 0]], lut_s[hsv[..., 1]], lut_v[hsv[..., 2]]], -1)
-        out = hsv_to_rgb_u8(hsv).astype(sample.image.dtype)
+        cv2 = processing.cv2_module()
+        if cv2 is not None:
+            hsv = cv2.cvtColor(sample.image.astype(np.uint8), cv2.COLOR_RGB2HSV)
+            hsv[..., 0] = cv2.LUT(hsv[..., 0], lut_h)
+            hsv[..., 1] = cv2.LUT(hsv[..., 1], lut_s)
+            hsv[..., 2] = cv2.LUT(hsv[..., 2], lut_v)
+            out = cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
+        else:
+            hsv = rgb_to_hsv_u8(sample.image.astype(np.uint8))
+            hsv = np.stack([lut_h[hsv[..., 0]], lut_s[hsv[..., 1]], lut_v[hsv[..., 2]]], -1)
+            out = hsv_to_rgb_u8(hsv)
+        out = out.astype(sample.image.dtype)
         return DetectionSample(out, sample.bboxes_xyxy, sample.labels, sample.is_crowd)
 
 
@@ -309,7 +330,12 @@ class DetectionRandomAffine(DetectionTransform):
         m = np.eye(3)
         m[:2, :2] = m2
         m[:2, 2] = [tx - cx * m2[0, 0] - cy * m2[0, 1], ty - cx * m2[1, 0] - cy * m2[1, 1]]
-        out_img = warp_affine(sample.image.astype(np.uint8), m, (th, tw), self.border_value)
+        cv2 = processing.cv2_module()
+        if cv2 is not None:
+            out_img = cv2.warpAffine(sample.image.astype(np.uint8), m[:2], dsize=(tw, th), flags=cv2.INTER_LINEAR,
+                                     borderValue=(self.border_value,) * 3)
+        else:
+            out_img = warp_affine(sample.image.astype(np.uint8), m, (th, tw), self.border_value)
 
         if len(sample.bboxes_xyxy):
             corners = np.stack(
@@ -353,7 +379,10 @@ class DetectionMixup(DetectionTransform):
         canvas_b = np.full((h, w, 3), 114, dtype)
         canvas_a[: sample.image.shape[0], : sample.image.shape[1]] = sample.image
         canvas_b[: other.image.shape[0], : other.image.shape[1]] = other.image
-        if uint8:
+        cv2 = processing.cv2_module() if uint8 else None
+        if cv2 is not None:
+            blended = cv2.addWeighted(canvas_a, 0.5, canvas_b, 0.5, 0.0)
+        elif uint8:
             blended = add_weighted_half(canvas_a, canvas_b)
         else:
             blended = (canvas_a * 0.5 + canvas_b * 0.5).astype(sample.image.dtype)

@@ -6,9 +6,10 @@ must be exactly equal to the JAX dataset's. Images already at ``input_dim`` pass
 val chain untouched on both sides, so the port's uint8 image divided by its
 ``max_value`` (``DetectionStandardize``'s float32 product) is bit-equal to the JAX
 float32 image. Through the mosaic train chain, with the JAX global generators and
-the port dataset's own seeded alike, targets are exactly equal and images within 1
-grey level (the JAX chain given the port's resize, as in
-``tests/test_torch_detection_transforms.py``). The epoch order
+the port dataset's own seeded alike, targets are exactly equal and images byte-equal
+on the port's cv2 path; on its no-cv2 path within 1 grey level (the JAX chain given the
+port's resize, as in ``tests/test_torch_detection_transforms.py``). ``plot()`` draws
+the JAX dataset's grid byte for byte. The epoch order
 (shuffle, ``drop_last``, ``min_samples``) equals the JAX ``DataLoader``'s index for
 index; the device standardize of a uint8 batch equals the host's bit for bit.
 """
@@ -32,7 +33,7 @@ from super_gradients_tpu_torch.common.registry import DATALOADERS
 from super_gradients_tpu_torch.training import dataloaders, datasets, datasets_roboflow
 from super_gradients_tpu_torch.training.trainer import _to_device
 from super_gradients_tpu_torch.training.transforms.detection import DetectionPaddedRescale, DetectionStandardize
-from test_torch_detection_transforms import same_resize, smooth_image  # noqa: F401  (a fixture)
+from test_torch_detection_transforms import no_cv2, same_resize, smooth_image  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
 
@@ -155,16 +156,22 @@ def test_yolo_darknet_dataset_equals_jax(data):
         np.testing.assert_array_equal(got[i][0].transpose(1, 2, 0), ref[i][0])
 
 
-@pytest.mark.parametrize("seed", [0, 5])
-def test_mosaic_train_dataset_draws_as_jax(data, seed, same_resize):
-    """The train chain through the dataset: the additional samples' indices (np.random)
-    and every transform decision (random) as the JAX dataset draws them."""
+def _mosaic_pair(data, seed):
     args = dict(data_dir=os.path.join(data, "rf100"), dataset_name="tiny", split="train", max_boxes=40)
     ref = jax_roboflow.RoboflowDetectionDataset(**args, transforms=jax_loaders._yolo_nas_train_transforms((SIDE, SIDE)))
     got = datasets_roboflow.RoboflowDetectionDataset(**args, seed=seed,
                                                      transforms=dataloaders._yolo_nas_train_transforms((SIDE, SIDE)))
     random.seed(seed)
     np.random.seed(seed)
+    return ref, got
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_mosaic_train_dataset_draws_as_jax(data, seed, same_resize):
+    """The train chain through the dataset on the port's no-cv2 path: the additional
+    samples' indices (np.random) and every transform decision (random) as the JAX dataset
+    draws them."""
+    ref, got = _mosaic_pair(data, seed)
     for i in (0, 4, 4, 9):
         ref_image, ref_target = ref[i]
         image, target = got[i]
@@ -172,6 +179,22 @@ def test_mosaic_train_dataset_draws_as_jax(data, seed, same_resize):
         diff = np.abs(np.multiply(image.transpose(1, 2, 0), np.float32(1 / 255), dtype=np.float32) - ref_image) * 255
         assert diff.max() <= 1.001
     assert np.random.randint(1 << 30) == got.np_rng.randint(1 << 30) and random.random() == got.rng.random()
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_mosaic_train_dataset_byte_equal_to_jax_with_cv2(data, seed):
+    """The same on the port's cv2 path, no resize shared: every sample byte-equal."""
+    ref, got = _mosaic_pair(data, seed)
+    for i in (0, 4, 4, 9):
+        assert_val_sample_equal_image(ref[i], got[i])
+    assert np.random.randint(1 << 30) == got.np_rng.randint(1 << 30) and random.random() == got.rng.random()
+
+
+def assert_val_sample_equal_image(ref_sample, sample):
+    (ref_image, ref_target), (image, target) = ref_sample, sample
+    np.testing.assert_array_equal(target, ref_target)
+    assert image.dtype == np.uint8
+    np.testing.assert_array_equal(np.multiply(image.transpose(1, 2, 0), np.float32(1 / 255), dtype=np.float32), ref_image)
 
 
 @pytest.mark.parametrize("n,batch,shuffle,drop_last,min_samples", [(10, 3, True, True, None), (10, 3, True, False, None),
@@ -247,6 +270,39 @@ def test_workers_reseed_and_repeat(data):
     assert proc.returncode == 0 and proc.stdout.startswith("OK"), proc.stderr[-3000:]
 
 
+def test_workers_run_cv2_after_the_parent_used_its_pool():
+    """Loader workers run cv2 with its own thread pool, also when the parent process has
+    used that pool before forking them (the worker init leaves cv2's threads alone:
+    resizing the pool in a forked child crashes it). In a fresh interpreter, as above."""
+    code = textwrap.dedent(
+        """
+        import cv2
+        import numpy as np
+        from super_gradients_tpu_torch.training import dataloaders
+        image = np.random.RandomState(0).randint(0, 256, (1280, 1280, 3), dtype=np.uint8)
+        for _ in range(3):  # the parent's pool at work
+            cv2.warpAffine(image, np.eye(2, 3), (1280, 1280))
+
+        class Threads:
+            def __len__(self):
+                return 8
+
+            def __getitem__(self, i):
+                out = cv2.warpAffine(image, np.eye(2, 3), (640, 640))
+                assert np.array_equal(out, image[:640, :640])
+                return np.int64(cv2.getNumThreads())
+
+        loader = dataloaders.DataLoader(Threads(), batch_size=2, num_workers=2)
+        print("THREADS", sorted({int(n) for batch in loader for n in batch}) == [cv2.getNumThreads()])
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "THREADS True" in proc.stdout, proc.stdout
+
+
 def test_standardize_on_the_device_is_bit_equal_to_the_host():
     rng = np.random.RandomState(9)
     images = torch.from_numpy(rng.randint(0, 256, (3, 3, 20, 24), dtype=np.uint8))
@@ -273,8 +329,31 @@ def test_plot_and_missing_split_raise(data):
     with pytest.raises(ValueError, match="split"):
         datasets_roboflow.RoboflowDetectionDataset(os.path.join(data, "rf100"), "tiny", "val")
     ds = datasets_roboflow.RoboflowDetectionDataset(os.path.join(data, "rf100"), "tiny", "valid")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ds.plot()
+    ref = jax_roboflow.RoboflowDetectionDataset(os.path.join(data, "rf100"), "tiny", "valid")
+    np.testing.assert_array_equal(ds.plot(), ref.plot())
     assert datasets_roboflow.get_dataset_num_classes("digits-t2eg6") == jax_roboflow.get_dataset_num_classes("digits-t2eg6")
     assert datasets_roboflow.list_datasets(["aerial"]) == jax_roboflow.list_datasets(["aerial"])
     assert datasets_roboflow.RF100_DATASETS == jax_roboflow.RF100_DATASETS
+
+
+@pytest.mark.parametrize("transformed,max_samples", [(True, 16), (True, 3), (False, 4)])
+def test_plot_byte_equal_to_jax(data, transformed, max_samples):
+    """``plot()`` draws the JAX dataset's grid: the uint8 sample standardized as the JAX
+    dataset yields it, the gt boxes in red; through the mosaic train chain (seeded alike)
+    and through the val chain, or the samples as read."""
+    for chain in ("train", "val"):
+        # the samples as read are drawn at their own sizes: the grid takes one size (the valid split's)
+        split = "train" if transformed else "valid"
+        args = dict(data_dir=os.path.join(data, "rf100"), dataset_name="tiny", split=split, max_boxes=40)
+        tj = jax_loaders._yolo_nas_train_transforms((SIDE, SIDE)) if chain == "train" else val_chain(_jax_transforms())
+        tp = dataloaders._yolo_nas_train_transforms((SIDE, SIDE)) if chain == "train" else val_chain(_port_transforms())
+        ref = jax_roboflow.RoboflowDetectionDataset(**args, transforms=tj)
+        got = datasets_roboflow.RoboflowDetectionDataset(**args, seed=3, transforms=tp)
+        random.seed(3)
+        np.random.seed(3)
+        grid = got.plot(max_samples_per_plot=max_samples, plot_transformed_data=transformed)
+        assert grid.dtype == np.uint8 and grid.ndim == 3
+        np.testing.assert_array_equal(grid, ref.plot(max_samples_per_plot=max_samples,
+                                                     plot_transformed_data=transformed))
+        if not transformed:
+            break  # the samples as read: no chain

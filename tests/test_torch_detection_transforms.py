@@ -3,9 +3,15 @@
 The JAX transforms draw from the global ``random``; the port's from the
 ``random.Random`` passed in. Both are seeded alike, so every random decision is the
 same: boxes, labels and crowd flags must be exactly equal, per transform and through
-the whole YOLO-NAS train chain. The JAX package runs its cv2 path (cv2 is installed
-here); the port runs its own image code. Image tolerances, measured on these inputs
-(smooth seeded fields with filled rectangles) and held here:
+the whole YOLO-NAS train chain, on both of the port's paths. The JAX package runs its
+cv2 path (cv2 is installed here).
+
+Where cv2 imports, the port makes the JAX package's cv2 calls: every image is
+byte-equal, per transform and through the whole chain (``test_cv2_path_*``).
+
+Without cv2 (forced here by the ``no_cv2`` fixture, which makes the port's cv2 getter
+return None) the port runs its own image code. Image tolerances of that path, measured
+on these inputs (smooth seeded fields with filled rectangles) and held here:
 
 - flips, standardize, mixup (cv2.addWeighted's rounding half to even): equal;
 - resize (padded rescale, mosaic): within 1 grey level (``F.interpolate`` vs cv2
@@ -28,6 +34,7 @@ import pytest
 
 from super_gradients_tpu.training import dataloaders as jax_loaders
 from super_gradients_tpu.training.transforms import detection as jt
+from super_gradients_tpu_torch.inference import processing as port_processing
 from super_gradients_tpu_torch.training import dataloaders as port_loaders
 from super_gradients_tpu_torch.training.transforms import detection as pt
 
@@ -89,18 +96,23 @@ SEEDS = range(6)
 
 
 @pytest.fixture
-def same_resize(monkeypatch):
-    """Give the JAX transforms the port's resize (cv2's differs by +-1 grey level)."""
-    from super_gradients_tpu_torch.inference.processing import resize_bilinear
+def no_cv2(monkeypatch):
+    """The port's no-cv2 path: its cv2 getter returns None (the JAX package keeps cv2)."""
+    monkeypatch.setattr(port_processing, "cv2_module", lambda: None)
 
-    monkeypatch.setattr(jt, "_resize", lambda image, out_hw: resize_bilinear(image.astype(np.uint8), out_hw))
+
+@pytest.fixture
+def same_resize(no_cv2, monkeypatch):
+    """Give the JAX transforms the port's no-cv2 resize (cv2's differs by +-1 grey level)."""
+    resize = port_processing.resize_bilinear
+    monkeypatch.setattr(jt, "_resize", lambda image, out_hw: resize(image.astype(np.uint8), out_hw))
 
 
 @pytest.mark.parametrize("name,kwargs", [("DetectionHorizontalFlip", {"prob": 0.5}),
                                          ("DetectionVerticalFlip", {"prob": 0.5}),
                                          ("DetectionStandardize", {"max_value": 255.0}),
                                          ("DetectionMixup", {"prob": 0.5})])
-def test_exact_transforms(name, kwargs):
+def test_exact_transforms(name, kwargs, no_cv2):
     for seed in SEEDS:
         ref, got = run_both(getattr(jt, name)(**kwargs), getattr(pt, name)(**kwargs), seed, make_samples(seed))
         assert_same_boxes(ref, got)
@@ -110,14 +122,14 @@ def test_exact_transforms(name, kwargs):
 @pytest.mark.parametrize("name,kwargs", [("DetectionPaddedRescale", {"input_dim": (64, 64)}),
                                          ("DetectionPaddedRescale", {"input_dim": (96, 80)}),
                                          ("DetectionMosaic", {"input_dim": (64, 64), "prob": 0.8})])
-def test_resizing_transforms_within_one_grey_level(name, kwargs):
+def test_resizing_transforms_within_one_grey_level(name, kwargs, no_cv2):
     for seed in SEEDS:
         ref, got = run_both(getattr(jt, name)(**kwargs), getattr(pt, name)(**kwargs), seed, make_samples(seed))
         assert_same_boxes(ref, got)
         assert grey_levels(ref.image, got.image).max() <= 1
 
 
-def test_hsv_follows_cv2():
+def test_hsv_follows_cv2(no_cv2):
     """Equal on the first 64 columns (cv2's vector body, whatever its block of 16, 32 or 64
     pixels); the last ``w % 64`` columns may be its rounding scalar tail: within 1."""
     for seed in SEEDS:
@@ -142,7 +154,7 @@ def test_hsv_conversions_match_cv2_on_every_colour():
     np.testing.assert_array_equal(pt.hsv_to_rgb_u8(hsv), cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB))
 
 
-def test_affine_follows_cv2_warp():
+def test_affine_follows_cv2_warp(no_cv2):
     kwargs = dict(degrees=10, translate=0.1, scales=(0.5, 1.5), shear=2.0, target_size=(64, 64))
     for seed in SEEDS:
         ref, got = run_both(jt.DetectionRandomAffine(**kwargs), pt.DetectionRandomAffine(**kwargs), seed,
@@ -152,7 +164,7 @@ def test_affine_follows_cv2_warp():
         assert diff.max() <= 2 and (diff <= 1).mean() >= 0.999, (seed, diff.max(), (diff <= 1).mean())
 
 
-def test_mixup_of_float_images_blends_as_jax():
+def test_mixup_of_float_images_blends_as_jax(no_cv2):
     samples = make_samples(7)
     for js, ps in samples:
         js.image = ps.image = js.image.astype(np.float32) / 3.0
@@ -179,3 +191,54 @@ def test_yolo_nas_train_chain_matches_jax(seed, same_resize):
     assert got.image.dtype == np.uint8 and ref.image.dtype == np.float32
     host = pt.DetectionStandardize(255.0)(got, None).image
     assert np.abs(host - ref.image).max() * 255.0 <= 1.001
+
+
+CV2_TRANSFORMS = [("DetectionHorizontalFlip", {"prob": 0.5}), ("DetectionVerticalFlip", {"prob": 0.5}),
+                  ("DetectionStandardize", {"max_value": 255.0}), ("DetectionMixup", {"prob": 0.5}),
+                  ("DetectionPaddedRescale", {"input_dim": (64, 64)}), ("DetectionPaddedRescale", {"input_dim": (96, 80)}),
+                  ("DetectionMosaic", {"input_dim": (64, 64), "prob": 0.8}), ("DetectionHSV", {"prob": 0.9}),
+                  ("DetectionRandomAffine", dict(degrees=10, translate=0.1, scales=(0.5, 1.5), shear=2.0,
+                                                 target_size=(64, 64)))]
+
+
+@pytest.mark.parametrize("name,kwargs", CV2_TRANSFORMS)
+def test_cv2_path_transforms_byte_equal_to_jax(name, kwargs):
+    """With cv2 the port makes the JAX package's cv2 calls: images byte-equal."""
+    for seed in SEEDS:
+        ref, got = run_both(getattr(jt, name)(**kwargs), getattr(pt, name)(**kwargs), seed, make_samples(seed))
+        assert_same_boxes(ref, got)
+        assert got.image.dtype == ref.image.dtype
+        np.testing.assert_array_equal(got.image, ref.image)
+
+
+def test_cv2_path_takes_no_stand_in(monkeypatch):
+    """Where cv2 imports, no numpy / torch stand-in runs (each is replaced by a trap)."""
+
+    def trap(*a, **k):
+        raise AssertionError("a no-cv2 stand-in ran although cv2 imports")
+
+    for module, name in ((port_processing, "resize_bilinear"), (pt, "warp_affine"), (pt, "rgb_to_hsv_u8"),
+                         (pt, "hsv_to_rgb_u8"), (pt, "add_weighted_half")):
+        monkeypatch.setattr(module, name, trap)
+    chain = pt.ComposeDetectionTransforms(port_loaders._yolo_nas_train_transforms((64, 64)))
+    samples = make_samples(3)
+    for seed in range(4):
+        chain(samples[0][1], random.Random(seed), [s for _, s in samples[1:]], skip_trailing_standardize=True)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_cv2_path_yolo_nas_train_chain_byte_equal_to_jax(seed):
+    """The whole YOLO-NAS train chain, cv2 on both sides and no resize shared: the port's
+    uint8 image standardized on the host is byte-equal to the JAX chain's float32 image."""
+    chain_j = jt.ComposeDetectionTransforms(jax_loaders._yolo_nas_train_transforms((64, 64)))
+    chain_p = pt.ComposeDetectionTransforms(port_loaders._yolo_nas_train_transforms((64, 64)))
+    samples = make_samples(seed, n=4)
+    (js, ps), extra = samples[0], samples[1:]
+    random.seed(seed)
+    ref = chain_j(js, [s for s, _ in extra])
+    rng = random.Random(seed)
+    got = chain_p(ps, rng, [s for _, s in extra], skip_trailing_standardize=True)
+    assert random.random() == rng.random()
+    assert_same_boxes(ref, got)
+    assert got.image.dtype == np.uint8
+    np.testing.assert_array_equal(pt.DetectionStandardize(255.0)(got, None).image, ref.image)

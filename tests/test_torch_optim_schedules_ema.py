@@ -250,7 +250,7 @@ def _model_stub():
     (dict(sg_logger_params={"monitor_system": True}), None, NotImplementedError),
     (dict(train_metrics_list=["Accuracy"]), None, KeyError),
     (dict(valid_metrics_list=[{"IoU": {}}]), None, KeyError),
-    (dict(phase_callbacks=["DetectionVisualizationCallback"]), None, KeyError),
+    (dict(phase_callbacks=["SegmentationVisualizationCallback"]), None, KeyError),
     (dict(phase_callbacks=[{"YoloXTrainingStageSwitchCallback": {}}]), None, KeyError),
     (dict(), "additional_callbacks", KeyError),
     (dict(phase_callbacks=["x"]), None, KeyError),

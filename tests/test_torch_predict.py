@@ -5,13 +5,12 @@ model's weights (``cls_pred`` biases at 0, so that random weights detect
 something). ``predict()`` runs on odd-sized uint8 images through letterbox,
 forward, decode and exact NMS.
 
-The port resizes with ``F.interpolate`` where the JAX package calls cv2, and the
-two differ by one grey level on ~12% of the pixels (pinned below). That is
-enough to reorder near-equal candidates, so the fp32 comparison gives the JAX
-pipeline the port's resize: both then see the same pixels, and the detections
-must agree in count and labels, with boxes to ``atol=5e-2`` and scores to
-``atol=5e-4``. bf16 rounds at other places in the two libraries; it is held to
-matched detection sets at a stated looser bound.
+The letterbox is the JAX package's ``cv2.resize`` wherever cv2 imports, so both
+pipelines see byte-equal pixels (pinned below), and the fp32 detections must agree
+in count and labels, with boxes to ``atol=5e-2`` and scores to ``atol=5e-4``.
+Without cv2 the port resizes with ``F.interpolate``, one grey level from cv2 on ~12%
+of the pixels (also pinned). bf16 rounds at other places in the two libraries; it is
+held to matched detection sets at a stated looser bound.
 """
 
 import json
@@ -51,14 +50,6 @@ def pair():
     return jm, pm
 
 
-@pytest.fixture
-def same_resize(monkeypatch):
-    """Give the JAX pipeline the port's resize (cv2's differs by +-1 grey level)."""
-    import super_gradients_tpu.inference.processing as jax_processing
-
-    monkeypatch.setattr(jax_processing, "_resize_bilinear", resize_bilinear)
-
-
 def _images(seed=0):
     rng = np.random.RandomState(seed)
     return [rng.randint(0, 256, (h, w, 3), dtype=np.uint8) for h, w in SIZES]
@@ -96,8 +87,33 @@ def test_resize_within_one_grey_level_of_cv2():
         assert np.abs(got - ref).max() <= 1
 
 
+@pytest.mark.parametrize("image_size", [64, 640])
+def test_letterbox_byte_equal_to_jax(image_size):
+    """Where cv2 imports, the predict letterbox (longest-side rescale, centre padding, /255)
+    is the JAX package's, byte for byte; without it the rescale is ``resize_bilinear``."""
+    import super_gradients_tpu.inference.processing as jax_processing
+    from super_gradients_tpu_torch.inference import processing
+
+    rng = np.random.RandomState(7)
+    port, ref = (m.default_yolo_nas_coco_processing(image_size) for m in (processing, jax_processing))
+    for h, w in SIZES + ((480, 640), (720, 1280), (image_size - 4, image_size - 4)):
+        img = rng.randint(0, 256, (h, w, 3), dtype=np.uint8)
+        got, metas = port.preprocess_image(img)
+        want, jmetas = ref.preprocess_image(img)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+        boxes = rng.uniform(0, image_size, (5, 4)).astype(np.float32)
+        np.testing.assert_array_equal(port.postprocess_boxes(boxes.copy(), metas),
+                                      ref.postprocess_boxes(boxes.copy(), jmetas))
+    img = rng.randint(0, 256, (50, 70, 3), dtype=np.uint8)
+    assert processing.cv2_module() is not None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(processing, "cv2_module", lambda: None)
+        np.testing.assert_array_equal(processing.resize(img, (43, 60)), resize_bilinear(img, (43, 60)))
+
+
 @pytest.mark.parametrize("fuse_model", [True, False])
-def test_predict_fp32_matches_jax(pair, same_resize, fuse_model):
+def test_predict_fp32_matches_jax(pair, fuse_model):
     jm, pm = pair
     images = _images()
     ref = jm.predict(images, bf16=False, fuse_model=fuse_model)
@@ -111,7 +127,7 @@ def test_predict_fp32_matches_jax(pair, same_resize, fuse_model):
         assert g.image.shape == r.image.shape
 
 
-def test_predict_bf16_matches_jax_loosely(pair, same_resize):
+def test_predict_bf16_matches_jax_loosely(pair):
     """bf16 convs round differently in the two libraries (and the JAX init's logits
     reach |100|, so 0.4% bf16 steps move scores a lot): at least 70% of the
     detections must match one to one with the same label at IoU >= 0.5."""
@@ -190,12 +206,14 @@ def test_get_on_cuda_raises_without_gpu():
 
 
 def test_unported_inputs_and_outputs_raise(pair, tmp_path):
-    _, pm = pair
-    with pytest.raises(TypeError):
-        pm.predict("image.jpg")
-    pred = pm.predict(_images()[0], bf16=False)[0]
-    with pytest.raises(NotImplementedError):
-        pred.draw()
+    """Inputs that are no image raise as in the JAX package; pretrained weights raise
+    naming their ROADMAP item; a checkpoint loads."""
+    jm, pm = pair
+    for bad, error in ((12345, TypeError), (str(tmp_path / "missing.jpg"), FileNotFoundError)):
+        with pytest.raises(error):
+            jm.predict(bad)
+        with pytest.raises(error):
+            pm.predict(bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.get("yolo_nas_s", device="cpu", pretrained_weights="coco")
     # checkpoint_path loads a .pth of the original super-gradients layout, ema_net first
@@ -213,10 +231,11 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
-    unavailable, and never imports them: every module of the recipe slice imports,
-    reading an image or a YAML recipe raises an ImportError that names PIL or PyYAML,
-    and, once PIL is back, a COCO-format dataset of PNGs runs one sample through the
-    YOLO-NAS train chain."""
+    unavailable, and never imports them: every module of the recipe, data and predict
+    surface imports, predict takes the no-cv2 letterbox, reading an image or a YAML recipe
+    raises an ImportError that names PIL or PyYAML, and, once PIL is back, a COCO-format
+    dataset of PNGs runs one sample through the YOLO-NAS train chain (cv2 still blocked:
+    the numpy / torch stand-ins)."""
     rng = np.random.RandomState(1)
     os.makedirs(tmp_path / "images")
     for i in range(4):
@@ -239,6 +258,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch import train_from_recipe
         from super_gradients_tpu_torch.common import config
         from super_gradients_tpu_torch.training import Trainer, dataloaders, datasets, datasets_roboflow
+        from super_gradients_tpu_torch.training import callbacks, pre_launch_callbacks, samplers
+        from super_gradients_tpu_torch.inference import media, prediction_results, processing, stream, video
+        assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
             if name.endswith("cls_pred"):

@@ -47,7 +47,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPE_FILES = ["roboflow_yolo_nas_m.yaml", "coco2017_yolo_nas_s.yaml", "training_hyperparams/default_train_params.yaml",
                 "training_hyperparams/coco2017_yolo_nas_train_params.yaml",
                 "dataset_params/coco_detection_yolo_nas_dataset_params.yaml",
-                "dataset_params/roboflow_detection_dataset_params.yaml"]
+                "dataset_params/roboflow_detection_dataset_params.yaml", "roboflow_yolo_nas_s.yaml",
+                "arch_params/yolo_nas_s_arch_params.yaml", "arch_params/yolo_nas_m_arch_params.yaml",
+                "arch_params/yolo_nas_l_arch_params.yaml"]
 NUM_CLASSES, SIDE = 4, 64
 
 
@@ -61,7 +63,8 @@ def test_recipe_files_are_byte_equal_copies(name):
                                             "ema=False", "resume=True"],
                                        ["training_hyperparams.max_epochs=7", "dataset_params.train_dataset_params.image_size=[320,320]",
                                         "num_classes=5", "dataset_name=aerial-pool", "extra.key={a: 1, b: [1, 2]}"]])
-@pytest.mark.parametrize("name", ["roboflow_yolo_nas_m", "coco2017_yolo_nas_s", "training_hyperparams/default_train_params.yaml"])
+@pytest.mark.parametrize("name", ["roboflow_yolo_nas_m", "roboflow_yolo_nas_s", "coco2017_yolo_nas_s",
+                                  "training_hyperparams/default_train_params.yaml"])
 def test_load_recipe_equals_jax(name, overrides):
     assert config.load_recipe(name, overrides=overrides) == jax_config.load_recipe(name, overrides=overrides)
 
@@ -182,10 +185,20 @@ def test_evaluate_checkpoint_matches_jax_evaluate(run, jax_model):
 
 
 def test_recipe_callbacks_and_unported_branches_raise():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": ["AutoTrainBatchSizeSelectionCallback"]})
-    with pytest.raises(KeyError, match="ROADMAP"):
+    """Named pre-launch callbacks resolve as in the JAX trainer: the batch-size probe,
+    called with the recipe alone, hands it back unchanged as the JAX one does; QAT's raises
+    naming its ROADMAP item, an unknown name raises KeyError as the JAX registry does."""
+    import super_gradients_tpu.training.pre_launch_callbacks  # noqa: F401  (registers the JAX callbacks)
+    from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
+
+    recipe = {"pre_launch_callbacks_list": [{"AutoTrainBatchSizeSelectionCallback": {"max_batch_size": 64}}],
+              "dataset_params": {"train_dataloader_params": {"batch_size": 16}}}
+    assert Trainer._trigger_cfg_modifying_callbacks(dict(recipe)) == JaxTrainer._trigger_cfg_modifying_callbacks(dict(recipe))
+    assert Trainer._trigger_cfg_modifying_callbacks(dict(recipe)) == recipe
+    with pytest.raises(KeyError, match="ROADMAP.md queue 1, item 8"):
         Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": [{"QATRecipeModificationCallback": {}}]})
+    with pytest.raises(KeyError, match="Unknown"):
+        Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": ["NoSuchCallback"]})
     cfg = Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": [lambda c: {**c, "seen": True}]})
     assert cfg["seen"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -92,3 +92,26 @@ def test_assigner_on_the_card_matches_the_cpu_on_ties(static):
     assert fg.sum() > 0 and torch.equal(cpu.gt_index[fg], gpu.gt_index.cpu()[fg])
     if not static:
         assert [a for a in inside if cpu.labels[0, a] == 2] == inside[:13]
+
+
+@pytest.mark.cuda
+def test_batch_size_probe_reads_peak_memory_and_leaves_the_model():
+    """The pre-launch probe: a real forward and backward at each batch, a peak that grows
+    with the batch, the weights and BN statistics as they were, no gradient left."""
+    _needs_cuda()
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training.losses import get_loss
+    from super_gradients_tpu_torch.training.pre_launch_callbacks import estimate_train_step_memory_gb
+
+    model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cuda")
+    loss = get_loss("PPYoloELoss", {"num_classes": 4})
+    targets = torch.tensor([[0, 8.0, 8.0, 40.0, 40.0]], device="cuda")
+
+    def loss_fn(out, t):  # detection targets for the probe's batch
+        return loss(out, targets.expand(t.shape[0], 1, 5).contiguous())
+
+    before = {k: v.clone() for k, v in model.net.state_dict().items()}
+    gbs = [estimate_train_step_memory_gb(model, b, (64, 64), loss_fn) for b in (2, 8)]
+    assert 0 < gbs[0] < gbs[1]
+    assert all(torch.equal(before[k], v) for k, v in model.net.state_dict().items())
+    assert all(p.grad is None for p in model.net.parameters()) and not model.net.training

@@ -78,7 +78,25 @@ result) without CUDA or without the port's sources next to it. Phases:
    dataset, the train order from a ``ClassBalancedSampler``, with
    ``DetectionVisualizationCallback`` (K1 3 launches: 2 validation batches and the
    drawing; 4 PNGs through the logger); ``AutoTrainBatchSizeSelectionCallback`` over
-   the ladder 8-64 with an 80 GB budget, each candidate's peak memory printed.
+   the ladder 8-64 with an 80 GB budget, each candidate's peak memory printed;
+13. YOLO-NAS-POSE-S at 640 (published widths and depths, 17 joints, seed 0, ``cls_pred``
+   biases 0): (a) fp32 ``predict()`` on the card against the CPU (TF32 off, exact NMS,
+   conf 0.01, up to 300 poses) on phase 3's 4-image request and a PIL image, boxes
+   matched one to one at IoU 0.99 (>= 99%) and the matched joints within
+   ``POSE_PX_TOL`` px, one result drawn, saved and read back at its size; (b) fused bf16
+   ``predict_batch_tensor`` at b8 and b32: img/s (host clock), forward and
+   ``batched_pose_nms`` ms (CUDA events), idle share (profiler); (c) K1 on the captured
+   pose candidates (K = 1024, all valid) at b8 and b32, bit-equal to the plain version
+   and timed as in phase 6; (d) one fp32 SGD pose step on the card and on the CPU held to
+   an fp64 CPU step (phase 8's rule), then the bf16 step at b16 and b32 by part, its
+   idle share, its peak memory and the assigner's peak beside its ``[B, 30, 8400, 17]``
+   OKS distances; (e) ``train_from_recipe`` of ``coco2017_yolo_nas_pose_s`` on a COCO
+   person-keypoints dataset of PNGs written from seed 13 (phase 11's sizes, 1-6 persons
+   each, visibility 0/1/2, ~10% iscrowd), 2 epochs of b16 with the train set tiled to 2
+   batches a worker, bf16, one validation pass an epoch through
+   ``PoseEstimationMetrics`` (K1 4 launches), the epoch-2 steady state and
+   ``evaluate_checkpoint`` held to a direct ``Trainer.evaluate`` with a planted fault
+   beyond the gate. K1's launches in (a) and (e) join the kernels line.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -596,12 +614,12 @@ class _FixedAssigner:
         return self.result
 
 
-def _one_step(torch, model, images, targets, assign=None):
-    """Forward, loss and backward of one fp32 SGD train step; returns the step,
-    its assignment, its loss components and its gradients (fp64, on the CPU)."""
+def _one_step(torch, model, images, targets, assign=None, base=COCO_YOLO_NAS):
+    """Forward, loss and backward of one fp32 SGD train step in the regime ``base``;
+    returns its assignment, its loss components and its gradients (fp64, on the CPU)."""
     from super_gradients_tpu_torch.training import Trainer
 
-    params = dict(COCO_YOLO_NAS, optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-5},
+    params = dict(base, optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-5},
                   ema=False, mixed_precision=False, lr_warmup_steps=0, initial_lr=1e-3)
     step = Trainer("chip_smoke_fp32").prepare(model, params, steps_per_epoch=1)
     out = step.forward(images)
@@ -1391,6 +1409,381 @@ def _phase_surface(torch, np, nms_exact, matched_fraction, data_root, work):
     return launches
 
 
+# super_gradients_tpu/recipes/coco2017_yolo_nas_pose_s.yaml's training_hyperparams, bf16
+COCO_YOLO_NAS_POSE = dict(
+    warmup_mode="LinearBatchLRWarmup", warmup_initial_lr=1e-6, lr_warmup_steps=128, initial_lr=2e-3,
+    lr_mode="CosineLRScheduler", cosine_final_lr_ratio=0.05, zero_weight_decay_on_bias_and_bn=True,
+    loss="YoloNASPoseLoss", criterion_params={"num_joints": 17},
+    optimizer="AdamW", optimizer_params={"weight_decay": 1e-6},
+    ema=True, ema_params={"decay": 0.997, "decay_type": "threshold"}, mixed_precision=True,
+    metric_to_watch="AP", valid_metrics_list=[{"PoseEstimationMetrics": {"num_joints": 17}}],
+)
+# |GPU - CPU| of a matched pose's joints (x, y) in original-image pixels, fp32 predict at 640
+POSE_PX_TOL = 0.5
+POSE_MAX_PREDICTIONS = 300  # phase 13(a) keeps every pose NMS leaves, so the matched fraction counts them all
+POSE_RECIPE_WAVES = 2  # train batches a loader worker makes an epoch in phase 13(e) (the set tiled by min_samples)
+
+
+def pose_matched(np, box_iou_fn, a, b, iou_min=0.99):
+    """One-to-one matches between two pose results by box IoU >= iou_min; returns the
+    matched fraction and the largest |difference| of a matched pair's joints (x, y)."""
+    if len(a) == 0 or len(b) == 0:
+        return float(len(a) == len(b)), 0.0
+    iou = box_iou_fn(a.bboxes_xyxy, b.bboxes_xyxy)
+    used, worst = set(), 0.0
+    for i in range(len(a)):
+        for j in np.flatnonzero(iou[i] >= iou_min):
+            if j not in used:
+                used.add(j)
+                worst = max(worst, float(np.abs(a.poses[i, :, :2] - b.poses[j, :, :2]).max()))
+                break
+    return len(used) / max(len(a), len(b)), worst
+
+
+def write_pose_coco(np, root, seed=13):
+    """A COCO person-keypoints dataset of PNGs written by PIL: 64 train and 32 val images of
+    phase 11's sizes on smooth fields, 1-6 persons each (a filled box), 17 joints inside the
+    box with visibility 0 (position 0, 0), 1 or 2; about 10% of the persons iscrowd.
+    Returns (persons, crowd persons)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    n_persons = n_crowd = 0
+    for split, count in (("train", 64), ("val", 32)):
+        folder = os.path.join(root, "images", split)
+        os.makedirs(folder)
+        images, annotations = [], []
+        for i in range(count):
+            h, w = RF100_SIZES[i % len(RF100_SIZES)]
+            image = smooth_field(np, rng, h, w)
+            for _ in range(rng.randint(1, 7)):
+                bw, bh = rng.uniform(32, w / 2), rng.uniform(48, h / 1.5)
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                image[int(y):int(y + bh), int(x):int(x + bw)] = rng.randint(0, 256, 3)
+                vis = rng.randint(0, 3, 17)
+                kps = np.stack([rng.uniform(x, x + bw, 17), rng.uniform(y, y + bh, 17), vis], -1)
+                kps[vis == 0, :2] = 0
+                crowd = int(rng.rand() < 0.1)
+                annotations.append({"id": len(annotations), "image_id": i, "category_id": 1, "bbox": [x, y, bw, bh],
+                                    "area": bw * bh, "iscrowd": crowd, "keypoints": kps.reshape(-1).tolist(),
+                                    "num_keypoints": int((vis > 0).sum())})
+                n_persons, n_crowd = n_persons + 1, n_crowd + crowd
+            Image.fromarray(image).save(os.path.join(folder, f"{i:04d}.png"))
+            images.append({"id": i, "file_name": f"{i:04d}.png", "height": h, "width": w})
+        with open(os.path.join(root, f"person_keypoints_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": [{"id": 1, "name": "person"}]}, f)
+    return n_persons, n_crowd
+
+
+def phase_pose(torch, np, nms_exact, box_iou, root):
+    """YOLO-NAS-POSE-S at 640 (published widths, 17 joints, seed 0, cls_pred biases 0):
+    (a) fp32 predict GPU vs CPU, (b) fused bf16 predict_batch_tensor timing, (c) K1 on the
+    captured pose candidates, (d) the fp32 train step GPU vs CPU vs fp64 and the bf16 step
+    by part, (e) train_from_recipe of coco2017_yolo_nas_pose_s. Returns (K1 launches on the
+    main path, the largest K1-vs-plain difference)."""
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models import sg_model
+    from super_gradients_tpu_torch.ops import nms as nms_module
+    from super_gradients_tpu_torch.training import Trainer, dataloaders
+
+    t_phase = time.perf_counter()
+
+    def iou_np(a, b):
+        return box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+    # (a) fp32 predict on the card against the CPU, TF32 off, exact NMS at conf 0.01
+    model = zero_cls_bias(models.get("yolo_nas_pose_s", seed=0, device="cuda"))
+    cpu_model = zero_cls_bias(models.get("yolo_nas_pose_s", seed=0, device="cpu"))
+    gpu_sd, cpu_sd = model.net.state_dict(), cpu_model.net.state_dict()
+    check(all(torch.equal(gpu_sd[k].cpu(), cpu_sd[k]) for k in cpu_sd), "pose: GPU and CPU models differ in weights")
+    images = request_images(np, 3)
+    pil_image = Image.fromarray(request_images(np, 5)[1])
+    kw = dict(conf=0.01, bf16=False, fuse_model=False, nms_mode="exact", max_predictions=POSE_MAX_PREDICTIONS)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nms_exact.exact_nms_keep.launches = 0
+    try:
+        gpu = list(model.predict(images, **kw)) + list(model.predict(pil_image, **kw))
+        predict_launches = nms_exact.exact_nms_keep.launches
+        cpu = list(cpu_model.predict(images, **kw)) + list(cpu_model.predict(pil_image, **kw))
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    check(predict_launches == 2, f"pose predict launched K1 {predict_launches} times, expected one a batch (2)")
+    fractions, worst = [], 0.0
+    for g, c in zip(gpu, cpu):
+        check(len(g) > 0 and np.isfinite(g.poses).all() and g.poses.shape[1:] == (17, 3), "pose: empty or bad result")
+        frac, px = pose_matched(np, iou_np, g, c)
+        fractions.append(frac)
+        worst = max(worst, px)
+    print(f"[13a] yolo_nas_pose_s 640 fp32 predict GPU vs CPU (TF32 off, exact NMS, conf 0.01, up to "
+          f"{POSE_MAX_PREDICTIONS} poses), 4-image request + a PIL image: poses {[len(g) for g in gpu]} vs "
+          f"{[len(c) for c in cpu]}; matched fractions at box IoU 0.99 {[round(f, 4) for f in fractions]}; matched "
+          f"joints |GPU - CPU| max {worst:.4f} px (limit {POSE_PX_TOL}); K1 launches {predict_launches}")
+    check(min(fractions) >= 0.99, f"pose predict GPU vs CPU matched fractions {fractions}")
+    check(worst <= POSE_PX_TOL, f"matched poses differ by {worst} px between GPU and CPU")
+    drawn_path = os.path.join(root, "pose_drawn.png")
+    gpu[0].save(drawn_path)
+    with Image.open(drawn_path) as saved:
+        check(saved.size == (images[0].shape[1], images[0].shape[0]), "the drawn pose result reads back at another size")
+    check(not np.array_equal(gpu[0].draw(), gpu[0].image), "the pose drawing drew nothing")
+    del cpu
+    print(f"[13a] seconds {time.perf_counter() - t_phase:.1f}")
+
+    # (b) fused bf16 predict_batch_tensor, and (c) K1 on its captured candidates
+    max_err = 0.0
+    for b in (8, 32):
+        batch = torch.rand((b, 640, 640, 3), generator=torch.Generator().manual_seed(3)).cuda()
+        call = lambda: model.predict_batch_tensor(batch)  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = call()
+        out.num_detections.cpu()
+        dt = time.perf_counter() - t0
+        net = model._deploy_net(True, True)
+        x = batch.to(torch.bfloat16).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: net(x), iters=10)
+            o = net(x)
+            nms_call = lambda: nms_module.batched_pose_nms(  # noqa: E731
+                o.pred_bboxes, o.pred_scores, o.pred_pose_coords, o.pred_pose_scores, score_threshold=0.5,
+                iou_threshold=0.7, nms_top_k=1024, max_predictions=30, mode="exact")
+            nms_ms = cuda_ms(nms_call, iters=20)
+        events, wall_ms = profiled(torch, call, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in events) / 1e3 / 5
+        print(f"[13b] yolo_nas_pose_s fused bf16 predict_batch_tensor b{b}: {b * iters / dt:.1f} img/s "
+              f"({1e3 * dt / iters:.2f} ms/batch, host clock); forward {forward_ms:.2f} ms, batched_pose_nms "
+              f"{nms_ms:.4f} ms (CUDA events); profiled: wall {wall_ms:.2f} ms a batch, device busy {busy_ms:.2f} ms, "
+              f"idle share {1 - busy_ms / wall_ms:.3f}")
+        nms_args, nms_kwargs = capture_call(sg_model, "batched_pose_nms",
+                                            lambda: model.predict_batch_tensor(batch, conf=0.01))
+        with torch.inference_mode():
+            (boxes, valid, t), _ = capture_call(nms_module, "exact_nms_keep",
+                                                lambda: nms_module.batched_pose_nms(*nms_args, **nms_kwargs))
+            check(tuple(boxes.shape) == (b, 1024, 4) and bool(valid.all()), "pose candidates: K = 1024, all valid")
+            max_err = max(max_err, check_k1_equal(torch, nms_exact, f"pose candidates b{b}", boxes, valid, t))
+            n_kept = nms_exact.exact_nms_keep(boxes, valid, t).sum(dim=1)
+            print(f"[13c] b{b} pose candidates: K={boxes.shape[1]}, all valid, kept per image {n_kept.tolist()}; "
+                  f"K1 bit-equal to the plain version")
+            time_k1(torch, nms_exact, f"b{b} pose candidates", boxes, valid, t, phase="13c")
+        del batch, out, o, boxes, valid, nms_args, nms_kwargs
+    print(f"[13b-c] seconds {time.perf_counter() - t_phase:.1f}")
+
+    phase_pose_train_steps(torch, np, model, cpu_model)
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    print(f"[13d] seconds {time.perf_counter() - t_phase:.1f}")
+
+    # (e) the pose recipe
+    data_root, ckpt_root = os.path.join(root, "coco_pose"), os.path.join(root, "ckpt")
+    launches = phase_pose_recipe(torch, np, nms_exact, dataloaders, Trainer, models, data_root, ckpt_root)
+    print(f"[13] K1 launches in phase 13's main paths: {predict_launches} (predict) + {launches} (recipe run); "
+          f"phase seconds {time.perf_counter() - t_phase:.1f}")
+    return predict_launches + launches, max_err
+
+
+def phase_pose_train_steps(torch, np, model, cpu_model):
+    """(d) One fp32 SGD pose step at 640 on the GPU and the CPU, held to an fp64 CPU step
+    (phase 8's rule), then the bf16 step at b16 and b32 by part with its peak memory
+    (``model`` on the card and ``cpu_model`` on the CPU carry the same weights)."""
+    import types
+
+    from super_gradients_tpu_torch.training import Trainer
+    from super_gradients_tpu_torch.training.dataloaders import RandomPoseDataset
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dataset = RandomPoseDataset(num_samples=2, image_size=(640, 640), num_joints=17, max_poses=30)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(2))))
+        runs = {}
+        for name, device, dtype in (("fp64 CPU", "cpu", torch.float64), ("fp32 CPU", "cpu", torch.float32),
+                                    ("fp32 GPU", "cuda", torch.float32)):
+            net = copy.deepcopy(cpu_model.net).to(device, dtype)
+            m = types.SimpleNamespace(net=net, device=torch.device(device))
+            x, t = images.to(device, dtype), targets.to(device, dtype)
+            if device == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            runs[name] = _one_step(torch, m, x, t, assign=runs["fp64 CPU"][0] if runs else None,
+                                   base=COCO_YOLO_NAS_POSE)
+            del net, m
+        labels64 = runs["fp64 CPU"][0].labels
+        for name in ("fp32 CPU", "fp32 GPU"):
+            diff = int((runs[name][0].labels.cpu() != labels64).sum())
+            print(f"[13d] pose {name}: {diff} of {labels64.numel()} anchors assigned another label than fp64 CPU "
+                  f"({int((labels64 != 1).sum())} positive)")
+        ref_comps, ref_grads = runs["fp64 CPU"][1], runs["fp64 CPU"][2]
+        for key in ("loss_cls", "loss_iou", "loss_dfl", "loss_pose_cls", "loss_pose_reg", "loss"):
+            errs = {name: abs(runs[name][1][key] - ref_comps[key]) for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[13d] {key} {ref_comps[key]:.6f} (fp64 CPU): GPU err {errs['fp32 GPU']:.3g}, "
+                  f"CPU err {errs['fp32 CPU']:.3g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-6 * abs(ref_comps[key]),
+                  f"pose GPU fp32 {key} more than twice as far from fp64 as the CPU's")
+        for group in ("backbone", "neck", "heads", ""):
+            keys = [k for k in ref_grads if k.startswith(group)]
+            norm = float(sum((ref_grads[k] ** 2).sum() for k in keys) ** 0.5)
+            errs = {name: float(sum(((runs[name][2][k] - ref_grads[k]) ** 2).sum() for k in keys) ** 0.5)
+                    for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[13d] pose gradients {group or 'all'} (norm {norm:.4g}): GPU L2 err {errs['fp32 GPU']:.4g}, "
+                  f"CPU L2 err {errs['fp32 CPU']:.4g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-7 * norm,
+                  f"pose GPU fp32 gradients ({group or 'all'}) more than twice as far from fp64 as the CPU's")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    del runs
+
+    for b in (16, 32):
+        step = Trainer("chip_smoke_pose_timing").prepare(model, COCO_YOLO_NAS_POSE, steps_per_epoch=100)
+        dataset = RandomPoseDataset(num_samples=b, image_size=(640, 640), num_joints=17, max_poses=30)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(b))))
+        images = images.cuda().contiguous(memory_format=torch.channels_last)
+        targets = targets.cuda()
+
+        def run(events=None):
+            marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+            marks[0]()
+            out = step.forward(images)
+            marks[1]()
+            loss, _ = step.loss(out, targets)
+            marks[2]()
+            step.backward(loss)
+            marks[3]()
+            step.update()
+            marks[4]()
+            return loss
+
+        for _ in range(3):
+            run()
+        iters = 10
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+        for ev in events:
+            run(ev)
+        torch.cuda.synchronize()
+        parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+        step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+        prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        # the assigner's [B, max_poses, 8400, 17] OKS distances, alone in the loss
+        out = step.forward(images)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            step.criterion.assign(out, targets)
+        torch.cuda.synchronize()
+        assign_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        oks_gib = b * targets.shape[1] * out.pred_pose_coords.shape[1] * 17 * 4 / 2**30
+        check(bool(torch.isfinite(loss)), f"pose b{b} train loss not finite")
+        print(f"[13d] yolo_nas_pose_s bf16 train step b{b}: {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.1f} img/s "
+              f"(CUDA events); forward {parts[0]:.2f}, loss {parts[1]:.2f}, backward {parts[2]:.2f}, optimizer+EMA "
+              f"{parts[3]:.2f} ms; profiled (device activity only): wall {wall_ms:.2f} ms/step, device busy "
+              f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak memory {peak:.2f} GiB; the assigner "
+              f"alone peaks {assign_peak:.2f} GiB above its inputs, of which the OKS distances "
+              f"[{b}, {targets.shape[1]}, {out.pred_pose_coords.shape[1]}, 17] fp32 are {oks_gib:.2f} GiB")
+        del step, images, targets, loss, out, prof_events
+        torch.cuda.empty_cache()
+
+
+def phase_pose_recipe(torch, np, nms_exact, dataloaders, Trainer, models, data_root, ckpt_root):
+    """(e) train_from_recipe of coco2017_yolo_nas_pose_s on a COCO person-keypoints dataset
+    written here; returns K1's launches inside it."""
+    from super_gradients_tpu_torch import train_from_recipe
+    from super_gradients_tpu_torch.common import config
+
+    cpus = os.cpu_count()
+    workers = min(8, cpus)
+    n_persons, n_crowd = write_pose_coco(np, data_root)
+    cuts = ["epochs=2", "batch_size=16", "val_batch_size=16", f"num_workers={workers}", f"ckpt_root_dir={ckpt_root}",
+            "training_hyperparams.mixed_precision=True"]
+    for split in ("train", "val"):
+        cuts += [f"dataset_params.{split}_dataset_params.data_dir={data_root}",
+                 f"dataset_params.{split}_dataset_params.json_file=person_keypoints_{split}.json",
+                 f"dataset_params.{split}_dataset_params.subdir=images/{split}"]
+    cfg = config.load_recipe("coco2017_yolo_nas_pose_s", overrides=cuts)
+    tiled = POSE_RECIPE_WAVES * 16 * workers
+    print(f"[13e] recipe coco2017_yolo_nas_pose_s through train_from_recipe.main; dataset: 64 train + 32 val PNGs, "
+          f"{n_persons} persons ({n_crowd} iscrowd); cuts: {cuts}, and the train loader rebuilt over the recipe's "
+          f"dataset with min_samples={tiled} ({POSE_RECIPE_WAVES} batches a worker an epoch)")
+    timed = {}
+    original_get = dataloaders.get
+
+    def timed_get(name=None, **kw):
+        loader = original_get(name, **kw)
+        if name == cfg["train_dataloader"]:
+            loader = dataloaders.DataLoader(loader.dataset, batch_size=loader.batch_size, shuffle=True, drop_last=True,
+                                            num_workers=loader.num_workers, min_samples=tiled)
+            loader = timed.setdefault("train", TimedLoader(loader, profile_epoch=1, profile_from=workers))
+        return loader
+
+    dataloaders.get = timed_get
+    nms_exact.exact_nms_keep.launches = 0
+    t0 = time.perf_counter()
+    try:
+        _, trainer = train_from_recipe.main(["--config-name=coco2017_yolo_nas_pose_s", *cuts])
+    finally:
+        dataloaders.get = original_get
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    launches = nms_exact.exact_nms_keep.launches
+    n_valid_batches = -(-32 // 16)
+    check(launches == 2 * n_valid_batches, f"K1 launched {launches} times in the pose recipe run, expected one a "
+                                           f"validation batch ({2 * n_valid_batches})")
+    history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+    check(len(history) == 2 and all(np.isfinite(history)), f"pose recipe train losses {history}")
+    check(len(valid) == 2 and all(set(v) == {"AP", "AR", "Loss"} and np.isfinite(list(v.values())).all()
+                                  for v in valid), f"pose recipe validation results {valid}")
+    steps = tiled // 16
+    check(trainer.train_state.step == 2 * steps, f"{trainer.train_state.step} steps taken, expected {2 * steps}")
+    loader = timed["train"]
+    requests, waits = loader.epochs[1]
+    seconds = requests[-1] - requests[workers]
+    steady_ms, steady_share = seconds * 1e3 / (len(waits) - workers), sum(waits[workers:]) / seconds
+    print(f"[13e] train_from_recipe: 2 epochs x {steps} steps of 16 at 640 (bf16) with validation and checkpoints in "
+          f"{train_seconds:.1f} s; K1 launches in it: {launches}; losses {history}; validation {json.dumps(valid)}")
+    print(f"[13e] epoch 2 steady state (steps {workers + 1}-{steps}, {workers} workers): {steady_ms:.2f} ms a step "
+          f"({16e3 / steady_ms:.1f} img/s), loader-wait share {steady_share:.3f}, device busy {loader.busy_ms:.2f} of "
+          f"{loader.window_ms:.2f} ms, idle share {1 - loader.busy_ms / loader.window_ms:.3f}; {loader.batch_bytes} "
+          f"bytes a batch to the card (float32 images + float32 targets)")
+
+    experiment = cfg["experiment_name"]
+    evaluated = Trainer.evaluate_checkpoint(experiment, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
+    best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
+    best = torch.load(best_path, map_location="cpu", weights_only=True)
+    model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], checkpoint_path=best_path)
+    val_loader = Trainer._loader_from_cfg(cfg, "val")
+    direct = Trainer("pose_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
+
+    def differences(a, b):  # |a - b| of each metric, of Loss relative to b
+        return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
+
+    diffs = differences(evaluated, direct)
+    model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
+    fault = differences(Trainer("pose_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
+                                                                                cfg["training_hyperparams"]), direct)
+    close_loader(val_loader)
+    print(f"[13e] evaluate_checkpoint(ckpt_best, epoch {best['epoch']}, fp32): {json.dumps(evaluated)}; |difference| "
+          f"to Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): {json.dumps(diffs)}, "
+          f"limit {RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}")
+    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"pose evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
+    check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the pose evaluate_checkpoint gate: {fault}")
+    close_loader(loader.loader)
+    del trainer, model, best
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -1430,6 +1823,9 @@ def main():
         os.makedirs(os.path.join(root, "surface"))
         surface_launches = phase_surface(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou),
                                          os.path.join(root, "rf100"), os.path.join(root, "surface"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_") as root:
+        pose_launches, pose_err = phase_pose(torch, np, nms_exact, bbox.box_iou, root)
+    max_err = max(max_err, pose_err)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1437,7 +1833,8 @@ def main():
     k1 = timings[8, 1024]  # the predict path's shape, every candidate valid
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches + train_launches + recipe_launches + surface_launches, "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches,
+        "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)
     }]}))

@@ -1,10 +1,10 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
-``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS).
+``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS and YOLO-NAS-POSE).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
-of those rules (``YOLO_NAS_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts
-the layout transforms:
+of those rules (``YOLO_NAS_RULES``, ``YOLO_NAS_POSE_RULES``, ``_GENERIC_RULES``,
+``_LEAF_MAP``) and inverts the layout transforms:
 
 - conv kernel HWIO -> OIHW;
 - conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``;
@@ -51,6 +51,17 @@ YOLO_NAS_RULES: Rules = (
     (r"(head\d\.stem)\.bn", r"\1.seq.bn"),
     (r"(head\d\.(?:cls|reg)_convs)\.conv", r"\1.0.seq.conv"),
     (r"(head\d\.(?:cls|reg)_convs)\.bn", r"\1.0.seq.bn"),
+)
+
+# YOLO-NAS-POSE: the pose heads add ConvBNReLU stems and a `pose_convs` Sequential, and
+# the JAX model keeps its heads at the top level where the torch model nests them under
+# `heads` (copy of the JAX package's YOLO_NAS_POSE_RULES)
+YOLO_NAS_POSE_RULES: Rules = YOLO_NAS_RULES + (
+    (r"(head\d\.(?:pose|bbox)_stem)\.conv$", r"\1.seq.conv"),
+    (r"(head\d\.(?:pose|bbox)_stem)\.bn$", r"\1.seq.bn"),
+    (r"(head\d)\.pose_convs_(\d+)\.conv$", r"\1.pose_convs.\2.seq.conv"),
+    (r"(head\d)\.pose_convs_(\d+)\.bn$", r"\1.pose_convs.\2.seq.bn"),
+    (r"^head(\d)", r"heads.head\1"),
 )
 
 

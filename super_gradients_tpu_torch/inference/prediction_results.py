@@ -1,16 +1,17 @@
 """Prediction result objects (counterpart of ``super_gradients_tpu/inference/prediction_results.py``).
 
 A :class:`DetectionPrediction` draws its boxes and labels on its image with PIL (imported
-at the call), in the JAX package's colours, text and layout; :class:`ImagesPredictions`
-saves every image's drawing, :class:`VideoPredictions` writes them as a video.
-Classification, segmentation and pose predictions come with their model families.
+at the call), in the JAX package's colours, text and layout, and a
+:class:`PoseEstimationPrediction` its skeletons; :class:`ImagesPredictions` saves every
+image's drawing, :class:`VideoPredictions` writes them as a video. Classification and
+segmentation predictions come with their model families.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -47,6 +48,52 @@ class DetectionPrediction:
             name = self.class_names[int(label)] if self.class_names else str(int(label))
             text = f"{name} {conf:.2f}" if show_confidence else name
             d.text((float(box[0]) + 2, max(0.0, float(box[1]) - 12)), text, fill=color)
+        return np.asarray(img)
+
+    def save(self, output_path: str, **kwargs) -> None:
+        from PIL import Image
+
+        Image.fromarray(self.draw(**kwargs)).save(output_path)
+
+    def show(self, **kwargs) -> np.ndarray:
+        """The drawing (there is no display to show it on a server)."""
+        return self.draw(**kwargs)
+
+
+@dataclasses.dataclass
+class PoseEstimationPrediction:
+    """Per-image pose result in original-image coordinates."""
+
+    poses: np.ndarray  # [N, J, 3] x, y, joint score
+    scores: np.ndarray  # [N]
+    bboxes_xyxy: Optional[np.ndarray] = None  # [N, 4]
+    edge_links: Optional[Sequence] = None  # joint pairs of the skeleton
+    edge_colors: Optional[Sequence] = None  # RGB a link
+    keypoint_colors: Optional[Sequence] = None  # RGB a joint
+    image: Optional[np.ndarray] = None  # HWC RGB uint8
+
+    def __len__(self):
+        return len(self.scores)
+
+    def draw(self, keypoint_radius: int = 3) -> np.ndarray:
+        """The image with each pose's links (both joints scored above 0) and joints, in
+        the pose's palette colour unless link and joint colours are given."""
+        from PIL import Image, ImageDraw
+
+        img = Image.fromarray(self.image.copy())
+        d = ImageDraw.Draw(img)
+        for pose_i, pose in enumerate(self.poses):
+            color = _PALETTE[pose_i % len(_PALETTE)]
+            if self.edge_links is not None:
+                for link_i, (a, b) in enumerate(self.edge_links):
+                    if pose[a, 2] > 0 and pose[b, 2] > 0:
+                        ec = tuple(self.edge_colors[link_i]) if self.edge_colors is not None else color
+                        d.line([tuple(pose[a, :2]), tuple(pose[b, :2])], fill=ec, width=2)
+            for joint_i, (x, y, v) in enumerate(pose):
+                if v > 0:
+                    kc = tuple(self.keypoint_colors[joint_i]) if self.keypoint_colors is not None else color
+                    d.ellipse([x - keypoint_radius, y - keypoint_radius, x + keypoint_radius, y + keypoint_radius],
+                              fill=kc)
         return np.asarray(img)
 
     def save(self, output_path: str, **kwargs) -> None:

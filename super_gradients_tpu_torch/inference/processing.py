@@ -1,5 +1,6 @@
 """Host-side image processing for predict (the subset of
-``super_gradients_tpu/inference/processing.py`` that YOLO-NAS COCO processing uses).
+``super_gradients_tpu/inference/processing.py`` that the YOLO-NAS and YOLO-NAS-POSE
+COCO processing use).
 
 numpy in, numpy out, one image at a time. The letterbox resize is the JAX
 package's call, ``cv2.resize(..., INTER_LINEAR)``, wherever cv2 imports (cv2 is
@@ -12,7 +13,7 @@ grey level of cv2 (whose fixed-point weights round differently).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,13 +29,17 @@ class ProcessingMetadata:
 
 
 class Processing:
-    """preprocess(image) -> (image, metadata); postprocess_boxes undoes the geometry."""
+    """preprocess(image) -> (image, metadata); postprocess_boxes / postprocess_keypoints
+    undo the geometry (keypoints ``[..., >=2]``: x, y first, any other column as is)."""
 
     def preprocess_image(self, image: np.ndarray) -> Tuple[np.ndarray, ProcessingMetadata]:
         raise NotImplementedError
 
     def postprocess_boxes(self, boxes: np.ndarray, meta: ProcessingMetadata) -> np.ndarray:
         return boxes
+
+    def postprocess_keypoints(self, kpts: np.ndarray, meta: ProcessingMetadata) -> np.ndarray:
+        return kpts
 
 
 def cv2_module():
@@ -81,6 +86,11 @@ class DetectionLongestMaxSizeRescale(Processing):
     def postprocess_boxes(self, boxes, meta):
         return boxes / meta.scale
 
+    def postprocess_keypoints(self, kpts, meta):
+        out = kpts.copy()
+        out[..., :2] = out[..., :2] / meta.scale
+        return out
+
 
 class DetectionBottomRightPadding(Processing):
     def __init__(self, output_shape: Sequence[int], pad_value: int = 114):
@@ -112,6 +122,23 @@ class DetectionCenterPadding(Processing):
         shift = np.array([meta.pad_left, meta.pad_top, meta.pad_left, meta.pad_top], dtype=boxes.dtype)
         return boxes - shift
 
+    def postprocess_keypoints(self, kpts, meta):
+        out = kpts.copy()
+        out[..., 0] -= meta.pad_left
+        out[..., 1] -= meta.pad_top
+        return out
+
+
+class KeypointsLongestMaxSizeRescale(DetectionLongestMaxSizeRescale):
+    """The same geometry for pose inputs."""
+
+
+class KeypointsBottomRightPadding(DetectionBottomRightPadding):
+    """Bottom-right padding for pose inputs (pad value 127 by default)."""
+
+    def __init__(self, output_shape: Sequence[int], pad_value: int = 127):
+        super().__init__(output_shape, pad_value)
+
 
 class StandardizeImage(Processing):
     def __init__(self, max_value: float = 255.0):
@@ -119,6 +146,13 @@ class StandardizeImage(Processing):
 
     def preprocess_image(self, image):
         return image.astype(np.float32) / self.max_value, ProcessingMetadata(original_hw=image.shape[:2])
+
+
+class ReverseImageChannels(Processing):
+    """RGB <-> BGR."""
+
+    def preprocess_image(self, image):
+        return image[..., ::-1], ProcessingMetadata(original_hw=image.shape[:2])
 
 
 class ComposeProcessing(Processing):
@@ -139,6 +173,11 @@ class ComposeProcessing(Processing):
             boxes = p.postprocess_boxes(boxes, m)
         return boxes
 
+    def postprocess_keypoints(self, kpts, metas):
+        for p, m in reversed(metas):
+            kpts = p.postprocess_keypoints(kpts, m)
+        return kpts
+
 
 def default_yolo_nas_coco_processing(image_size: int = 640) -> ComposeProcessing:
     """The published YOLO-NAS COCO processing: LongestMaxSizeRescale(636, 636) +
@@ -149,4 +188,39 @@ def default_yolo_nas_coco_processing(image_size: int = 640) -> ComposeProcessing
             DetectionCenterPadding((image_size, image_size), 114),
             StandardizeImage(255.0),
         ]
+    )
+
+
+# the COCO skeleton as the pose processing parameters draw it, one colour a link and a joint
+COCO_POSE_DEFAULT_EDGE_LINKS = [
+    [0, 1], [0, 2], [1, 2], [1, 3], [2, 4], [3, 5], [4, 6], [5, 6], [5, 7], [5, 11],
+    [6, 8], [6, 12], [7, 9], [8, 10], [11, 12], [11, 13], [12, 14], [13, 15], [14, 16],
+]
+COCO_POSE_DEFAULT_EDGE_COLORS = [
+    (214, 39, 40), (148, 103, 189), (44, 160, 44), (140, 86, 75), (227, 119, 194),
+    (127, 127, 127), (188, 189, 34), (127, 127, 127), (188, 189, 34), (140, 86, 75),
+    (23, 190, 207), (227, 119, 194), (31, 119, 180), (255, 127, 14), (148, 103, 189),
+    (255, 127, 14), (214, 39, 40), (31, 119, 180), (44, 160, 44),
+]
+COCO_POSE_DEFAULT_KEYPOINT_COLORS = [(148, 103, 189), (31, 119, 180)] * 8 + [(148, 103, 189)]
+
+
+def default_yolo_nas_pose_coco_processing_params() -> Dict[str, Any]:
+    """The published YOLO-NAS-POSE COCO processing parameters: BGR, longest side 640,
+    bottom-right padding with 127, /255, conf 0.5 and the COCO skeleton's colours.
+    (``models.get("yolo_nas_pose_*")`` predicts with
+    :func:`default_yolo_nas_coco_processing`, as the JAX zoo does.)"""
+    return dict(
+        image_processor=ComposeProcessing(
+            [
+                ReverseImageChannels(),
+                KeypointsLongestMaxSizeRescale((640, 640)),
+                KeypointsBottomRightPadding((640, 640), 127),
+                StandardizeImage(255.0),
+            ]
+        ),
+        conf=0.5,
+        edge_links=COCO_POSE_DEFAULT_EDGE_LINKS,
+        edge_colors=COCO_POSE_DEFAULT_EDGE_COLORS,
+        keypoint_colors=COCO_POSE_DEFAULT_KEYPOINT_COLORS,
     )

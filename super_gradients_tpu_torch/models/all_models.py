@@ -1,4 +1,4 @@
-"""Architecture registrations of the port (the YOLO-NAS rows of
+"""Architecture registrations of the port (the YOLO-NAS and YOLO-NAS-POSE rows of
 ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
@@ -7,7 +7,11 @@ import dataclasses
 
 from super_gradients_tpu_torch.common.registry import register_model
 from super_gradients_tpu_torch.inference.processing import default_yolo_nas_coco_processing
-from super_gradients_tpu_torch.models.class_names import COCO_DETECTION_CLASSES_LIST
+from super_gradients_tpu_torch.models.class_names import (
+    COCO_DETECTION_CLASSES_LIST,
+    COCO_POSE_EDGE_LINKS,
+    COCO_POSE_KEYPOINTS,
+)
 from super_gradients_tpu_torch.models.detection.yolo_nas import (
     YoloNAS,
     yolo_nas_l_config,
@@ -16,6 +20,15 @@ from super_gradients_tpu_torch.models.detection.yolo_nas import (
     yolo_nas_s_config,
 )
 from super_gradients_tpu_torch.models.model_factory import ModelSpec
+from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
+    YoloNASPose,
+    yolo_nas_pose_config_from_arch_params,
+    yolo_nas_pose_l_config,
+    yolo_nas_pose_m_config,
+    yolo_nas_pose_n_config,
+    yolo_nas_pose_s_config,
+)
+from super_gradients_tpu_torch.models.sg_model import PoseEstimationModel
 
 _FUSED = {"none": False, "full": True}  # the JAX package's `fused` values that the port builds
 
@@ -53,3 +66,47 @@ def yolo_nas_m(**kw):
 @register_model("yolo_nas_l")
 def yolo_nas_l(**kw):
     return _yolo_nas_spec(yolo_nas_l_config, **kw)
+
+
+def _pose_spec(config_fn, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:
+    """A YOLO-NAS-POSE spec: ``num_classes`` is the joint count (17 by default); an
+    arch_params module-spec tree (``load_arch_params("yolo_nas_pose_s_arch_params")``)
+    reshapes the model. Predict uses the YOLO-NAS COCO processing, as the JAX zoo does."""
+    arch_params = arch_params or {}
+    fused = _FUSED[arch_params.get("fused", "none")]
+    if "backbone" in arch_params:
+        cfg = dataclasses.replace(yolo_nas_pose_config_from_arch_params(arch_params, num_joints=num_classes),
+                                  fused=fused)
+    else:
+        cfg = config_fn(num_joints=num_classes or arch_params.get("num_joints", 17), fused=fused)
+    nj = cfg.num_joints
+    return ModelSpec(
+        net=YoloNASPose(cfg),
+        num_classes=nj,
+        input_hw=(image_size, image_size),
+        config=cfg,
+        processing=default_yolo_nas_coco_processing(image_size),
+        class_names=COCO_POSE_KEYPOINTS if nj == 17 else None,
+        model_cls=PoseEstimationModel,
+        model_kwargs={"edge_links": COCO_POSE_EDGE_LINKS if nj == 17 else None},
+    )
+
+
+@register_model("yolo_nas_pose_n")
+def yolo_nas_pose_n(**kw):
+    return _pose_spec(yolo_nas_pose_n_config, **kw)
+
+
+@register_model("yolo_nas_pose_s")
+def yolo_nas_pose_s(**kw):
+    return _pose_spec(yolo_nas_pose_s_config, **kw)
+
+
+@register_model("yolo_nas_pose_m")
+def yolo_nas_pose_m(**kw):
+    return _pose_spec(yolo_nas_pose_m_config, **kw)
+
+
+@register_model("yolo_nas_pose_l")
+def yolo_nas_pose_l(**kw):
+    return _pose_spec(yolo_nas_pose_l_config, **kw)

@@ -1,4 +1,4 @@
-"""COCO detection class names (public data; counterpart of the JAX package's list)."""
+"""COCO class names and pose constants (public data; counterpart of the JAX package's lists)."""
 
 COCO_DETECTION_CLASSES_LIST = [
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
@@ -12,4 +12,21 @@ COCO_DETECTION_CLASSES_LIST = [
     "mouse", "remote", "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
     "refrigerator", "book", "clock", "vase", "scissors", "teddy bear", "hair drier",
     "toothbrush",
+]
+
+# the 17 COCO keypoints, the skeleton's links and the per-joint OKS sigmas (pose estimation)
+COCO_POSE_KEYPOINTS = [
+    "nose", "left_eye", "right_eye", "left_ear", "right_ear", "left_shoulder",
+    "right_shoulder", "left_elbow", "right_elbow", "left_wrist", "right_wrist",
+    "left_hip", "right_hip", "left_knee", "right_knee", "left_ankle", "right_ankle",
+]
+
+COCO_POSE_EDGE_LINKS = [
+    (15, 13), (13, 11), (16, 14), (14, 12), (11, 12), (5, 11), (6, 12), (5, 6),
+    (5, 7), (6, 8), (7, 9), (8, 10), (1, 2), (0, 1), (0, 2), (1, 3), (2, 4), (3, 5), (4, 6),
+]
+
+COCO_POSE_SIGMAS = [
+    0.026, 0.025, 0.025, 0.035, 0.035, 0.079, 0.079, 0.072, 0.072, 0.062, 0.062,
+    0.107, 0.107, 0.087, 0.087, 0.089, 0.089,
 ]

@@ -431,23 +431,29 @@ class YoloNAS(nn.Module):
     def forward(self, x: torch.Tensor) -> YoloNASOutputs:
         return self.heads(self.neck(self.backbone(x)))
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> "YoloNAS":
-        """Seeded random init: He-normal conv weights, zero conv biases except the
-        classification prior, unit BN affine and (0, 1) running stats, alpha 1."""
-        for name, module in self.named_modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                # a 2x2 stride-2 transposed conv feeds each output from one tap of `in` channels
-                fan_in = module.weight[0].numel() if isinstance(module, nn.Conv2d) else module.weight.shape[0]
-                module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * math.sqrt(2.0 / fan_in))
-                if module.bias is not None:
-                    module.bias.fill_(CLS_PRIOR_BIAS if name.endswith("cls_pred") else 0.0)
-            elif isinstance(module, nn.BatchNorm2d):
-                module.reset_parameters()
-        for name, p in self.named_parameters():
-            if name.endswith("alpha"):
-                p.fill_(1.0)
-        return self
+        """Seeded random init (:func:`reset_yolo_nas_parameters`)."""
+        return reset_yolo_nas_parameters(self, generator)
+
+
+@torch.no_grad()
+def reset_yolo_nas_parameters(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random init of a YOLO-NAS family network: He-normal conv weights, zero
+    conv biases except the classification prior of every ``cls_pred``, unit BN affine
+    and (0, 1) running stats, alpha 1."""
+    for name, module in net.named_modules():
+        if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+            # a 2x2 stride-2 transposed conv feeds each output from one tap of `in` channels
+            fan_in = module.weight[0].numel() if isinstance(module, nn.Conv2d) else module.weight.shape[0]
+            module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * math.sqrt(2.0 / fan_in))
+            if module.bias is not None:
+                module.bias.fill_(CLS_PRIOR_BIAS if name.endswith("cls_pred") else 0.0)
+        elif isinstance(module, nn.BatchNorm2d):
+            module.reset_parameters()
+    for name, p in net.named_parameters():
+        if name.endswith("alpha"):
+            p.fill_(1.0)
+    return net
 
 
 def yolo_nas_s_config(num_classes: int = 80, fused: bool = False) -> YoloNASConfig:

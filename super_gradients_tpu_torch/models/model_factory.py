@@ -3,21 +3,21 @@
 
 Each registered architecture is a builder returning a :class:`ModelSpec`; ``get``
 initializes the network from a seeded ``torch.Generator`` on the CPU, moves it to
-the requested device and wraps it in a :class:`DetectionModel` (the only task
-ported so far).
+the requested device and wraps it in the task model that the spec names
+(:class:`DetectionModel` or :class:`PoseEstimationModel`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import torch
 from torch import nn
 
 from super_gradients_tpu_torch.common.registry import ARCHITECTURES
 from super_gradients_tpu_torch.inference.processing import Processing
-from super_gradients_tpu_torch.models.sg_model import DetectionModel
+from super_gradients_tpu_torch.models.sg_model import DetectionModel, SgModel
 
 
 @dataclasses.dataclass
@@ -30,6 +30,8 @@ class ModelSpec:
     config: Any = None
     processing: Optional[Processing] = None
     class_names: Optional[List[str]] = None
+    model_cls: Type[SgModel] = DetectionModel  # the task model that wraps the network
+    model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)  # its task-specific arguments
 
 
 def get_architecture(model_name: str):
@@ -82,7 +84,7 @@ def get(
     load_backbone: bool = False,
     strict_load: Optional[bool] = None,
     **kwargs,
-) -> DetectionModel:
+) -> SgModel:
     """Instantiate a model from the zoo with random weights made from ``seed``.
 
     ``device`` defaults to ``"cuda"`` and raises when no GPU is visible; pass
@@ -110,9 +112,9 @@ def get(
     generator = torch.Generator().manual_seed(seed)
     spec.net.reset_parameters(generator)
     _calibrate_batch_norm(spec.net, generator, (2, 3, *spec.input_hw))
-    model = DetectionModel(
+    model = spec.model_cls(
         name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
-        processing=spec.processing, class_names=spec.class_names, device=device,
+        processing=spec.processing, class_names=spec.class_names, device=device, **spec.model_kwargs,
     )
     if checkpoint_path is not None:
         from super_gradients_tpu_torch.training.checkpoints import load_checkpoint_into_model
@@ -122,7 +124,7 @@ def get(
     return model
 
 
-def replace_head(model: DetectionModel, new_num_classes: int, seed: int = 0, **kwargs) -> DetectionModel:
+def replace_head(model: SgModel, new_num_classes: int, seed: int = 0, **kwargs) -> SgModel:
     """The same architecture at ``new_num_classes``, with every tensor whose name and
     shape match taken from ``model`` (the backbone and neck stay bit-identical) and only
     the class-dependent head tensors freshly initialized from ``seed``."""

@@ -1,17 +1,19 @@
-"""SgModel / DetectionModel: an ``nn.Module`` + task metadata with a predict() surface
-(counterpart of ``super_gradients_tpu/models/sg_model.py``).
+"""SgModel / DetectionModel / PoseEstimationModel: an ``nn.Module`` + task metadata with a
+predict() surface (counterpart of ``super_gradients_tpu/models/sg_model.py``).
 
 The JAX package compiles preprocess-forward-decode-NMS into one XLA program per
 shape. Here the same steps run eagerly: host processing per image (numpy), then
 per batch one forward of the deploy-form network on the model's device, the
-fp32 decode, and ``batched_nms`` whose exact mode is the hand-written CUDA
-kernel K1 on a GPU. ``predict`` takes arrays, PIL images, image files, folders and
-video files (``predict_video``); ``predict_webcam`` runs on a capture device.
+fp32 decode, and ``batched_nms`` (detection) or ``batched_pose_nms`` (pose) whose
+exact mode is the hand-written CUDA kernel K1 on a GPU. ``predict`` takes arrays, PIL
+images, image files, folders and video files (``predict_video``); ``predict_webcam``
+runs on a capture device.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -22,16 +24,21 @@ from super_gradients_tpu_torch.inference.media import images_to_list
 from super_gradients_tpu_torch.inference.prediction_results import (
     DetectionPrediction,
     ImagesPredictions,
+    PoseEstimationPrediction,
     VideoPredictions,
 )
 from super_gradients_tpu_torch.inference.processing import Processing
 from super_gradients_tpu_torch.inference.video import includes_video_extension, lazy_load_video
 from super_gradients_tpu_torch.modules.blocks import QARepVGGBlock
-from super_gradients_tpu_torch.ops.nms import NMSOutput, batched_nms
+from super_gradients_tpu_torch.ops.nms import NMSOutput, PoseNMSOutput, batched_nms, batched_pose_nms
 
 
 class SgModel:
-    """A network in eval mode on one device, with its processing and class names."""
+    """A network in eval mode on one device, with its processing and class names.
+
+    ``device`` defaults to ``"cuda"`` and raises when no GPU is visible; pass
+    ``device="cpu"`` to run on the CPU.
+    """
 
     task: str = "generic"
 
@@ -43,10 +50,13 @@ class SgModel:
         config: Any = None,
         processing: Optional[Processing] = None,
         class_names: Optional[List[str]] = None,
-        device: torch.device = torch.device("cpu"),
+        device="cuda",
     ):
         self.name = name
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{type(self).__name__}(..., device='{self.device}'): CUDA is not available; "
+                               f"pass device='cpu' to run on the CPU")
         self.net = net.to(self.device).eval()
         self.num_classes = num_classes
         self.config = config
@@ -90,6 +100,36 @@ class SgModel:
         self.net.load_state_dict(state_dict, strict=True)
         self._deploy_nets.clear()
 
+    def fuse(self) -> "SgModel":
+        """A NEW model of the same task whose every QARepVGG block is re-parameterized
+        to its deploy form (one 3x3 conv); this model is left as it is."""
+        if getattr(self.config, "fused", True):
+            return self
+        net = copy.deepcopy(self.net)
+        for module in net.modules():
+            if isinstance(module, QARepVGGBlock):
+                module.fuse_()
+        fused = copy.copy(self)
+        fused.name = self.name + "_fused"
+        fused.net = net.eval()
+        fused.config = dataclasses.replace(self.config, fused=True)
+        fused._deploy_nets = {}
+        return fused
+
+    def _deploy_net(self, fuse_model: bool, bf16: bool) -> nn.Module:
+        """Deploy form of the network: optionally fused and bf16, channels_last on CUDA."""
+        key = (fuse_model, bf16)
+        if key not in self._deploy_nets:
+            net = self.fuse().net if fuse_model else self.net
+            if bf16 or self.device.type == "cuda":
+                net = copy.deepcopy(net) if net is self.net else net
+                if bf16:
+                    net = net.to(torch.bfloat16)
+                if self.device.type == "cuda":
+                    net = net.to(memory_format=torch.channels_last)
+            self._deploy_nets[key] = net.eval()
+        return self._deploy_nets[key]
+
     def _prep_host_batches(self, images, batch_size: int):
         """Host side: geometric + photometric preprocessing per image, grouped in batches."""
         image_list = images_to_list(images)
@@ -119,37 +159,6 @@ class DetectionModel(SgModel):
         self._default_max_predictions = 300
         self._default_multi_label_per_box = True
         self._default_class_agnostic_nms = False
-
-    def fuse(self) -> "DetectionModel":
-        """A NEW DetectionModel whose every QARepVGG block is re-parameterized to
-        its deploy form (one 3x3 conv); this model is left as it is."""
-        if getattr(self.config, "fused", True):
-            return self
-        import dataclasses
-
-        net = copy.deepcopy(self.net)
-        for module in net.modules():
-            if isinstance(module, QARepVGGBlock):
-                module.fuse_()
-        return DetectionModel(
-            name=self.name + "_fused", net=net, num_classes=self.num_classes,
-            config=dataclasses.replace(self.config, fused=True), processing=self._processing,
-            class_names=self._class_names, device=self.device,
-        )
-
-    def _deploy_net(self, fuse_model: bool, bf16: bool) -> nn.Module:
-        """Deploy form of the network: optionally fused and bf16, channels_last on CUDA."""
-        key = (fuse_model, bf16)
-        if key not in self._deploy_nets:
-            net = self.fuse().net if fuse_model else self.net
-            if bf16 or self.device.type == "cuda":
-                net = copy.deepcopy(net) if net is self.net else net
-                if bf16:
-                    net = net.to(torch.bfloat16)
-                if self.device.type == "cuda":
-                    net = net.to(memory_format=torch.channels_last)
-            self._deploy_nets[key] = net.eval()
-        return self._deploy_nets[key]
 
     @torch.inference_mode()
     def _predict_tensor(self, images, conf, iou, nms_top_k, max_predictions, multi_label, class_agnostic, nms_mode,
@@ -236,4 +245,92 @@ class DetectionModel(SgModel):
             kwargs.get("fuse_model", True),
             kwargs.get("bf16", True),
             "two_stage",
+        )
+
+
+class PoseEstimationModel(SgModel):
+    """Pose task wrapper: forward + decode + pose NMS predict path (defaults of the JAX
+    ``PoseEstimationModel``: conf 0.5, IoU 0.7, 1024 candidates before NMS, 30 after)."""
+
+    task = "pose_estimation"
+
+    def __init__(self, *args, edge_links=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._edge_links = edge_links
+        self._default_nms_conf = 0.5
+        self._default_nms_iou = 0.7
+        self._default_pre_nms_max_predictions = 1024
+        self._default_post_nms_max_predictions = 30
+
+    @torch.inference_mode()
+    def _predict_tensor(self, images, conf, iou, nms_top_k, max_predictions, nms_mode, fuse_model,
+                        bf16) -> PoseNMSOutput:
+        net = self._deploy_net(fuse_model, bf16)
+        images = torch.as_tensor(images)
+        # an NHWC tensor permuted to NCHW is already in channels_last memory order
+        x = images.to(self.device, torch.bfloat16 if bf16 else torch.float32).permute(0, 3, 1, 2)
+        out = net(x)
+        return batched_pose_nms(
+            out.pred_bboxes, out.pred_scores, out.pred_pose_coords, out.pred_pose_scores, score_threshold=conf,
+            iou_threshold=iou, nms_top_k=nms_top_k, max_predictions=max_predictions, mode=nms_mode,
+        )
+
+    def predict(
+        self,
+        images,
+        conf: Optional[float] = None,
+        iou: Optional[float] = None,
+        batch_size: int = 8,
+        max_predictions: Optional[int] = None,
+        pre_nms_max_predictions: Optional[int] = None,
+        nms_mode: str = "exact",
+        bf16: bool = True,
+        fuse_model: bool = True,
+    ) -> ImagesPredictions:
+        """Predict poses on RGB images of any sizes (the inputs of
+        :meth:`DetectionModel.predict`, a video file included).
+
+        Returns per-image :class:`PoseEstimationPrediction`s: poses ``[N, J, 3]`` and
+        boxes in original-image pixels (not clipped, as in the JAX package).
+        """
+        if isinstance(images, str) and includes_video_extension(images):
+            return self.predict_video(
+                images, batch_size=batch_size, conf=conf, iou=iou, max_predictions=max_predictions,
+                pre_nms_max_predictions=pre_nms_max_predictions, nms_mode=nms_mode, bf16=bf16,
+                fuse_model=fuse_model,
+            )
+        conf = conf if conf is not None else self._default_nms_conf
+        iou = iou if iou is not None else self._default_nms_iou
+        max_predictions = max_predictions or self._default_post_nms_max_predictions
+        nms_top_k = pre_nms_max_predictions or self._default_pre_nms_max_predictions
+
+        image_list, batches, metas = self._prep_host_batches(images, batch_size)
+        predictions: List[PoseEstimationPrediction] = []
+        for batch in batches:
+            out = self._predict_tensor(torch.from_numpy(batch), conf, iou, nms_top_k, max_predictions, nms_mode,
+                                       fuse_model, bf16)
+            poses, boxes, scores, nums = (t.cpu().numpy() for t in out)
+            for j in range(len(batch)):
+                idx = len(predictions)
+                n = int(nums[j])
+                pj, bj = poses[j, :n].copy(), boxes[j, :n].copy()
+                if metas[idx] is not None:
+                    pj = self._processing.postprocess_keypoints(pj, metas[idx])
+                    bj = self._processing.postprocess_boxes(bj, metas[idx])
+                predictions.append(PoseEstimationPrediction(
+                    poses=pj, scores=scores[j, :n], bboxes_xyxy=bj, edge_links=self._edge_links, image=image_list[idx],
+                ))
+        return ImagesPredictions(predictions)
+
+    def predict_batch_tensor(self, images, conf: Optional[float] = None, iou: Optional[float] = None,
+                             nms_top_k: Optional[int] = None, max_predictions: Optional[int] = None,
+                             nms_mode: str = "exact", bf16: bool = True, fuse_model: bool = True) -> PoseNMSOutput:
+        """Raw path for uniform pre-sized, standardized input ``[B, H, W, 3]`` (bench/serving)."""
+        return self._predict_tensor(
+            images,
+            conf if conf is not None else self._default_nms_conf,
+            iou if iou is not None else self._default_nms_iou,
+            nms_top_k or self._default_pre_nms_max_predictions,
+            max_predictions or self._default_post_nms_max_predictions,
+            nms_mode, fuse_model, bf16,
         )

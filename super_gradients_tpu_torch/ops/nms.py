@@ -12,6 +12,9 @@ per-image Python loop. Suppression modes:
 - ``fast`` — YOLACT fast NMS: suppressed if any higher-ranked box overlaps.
 - ``matrix`` — Matrix-NMS (SOLOv2) gaussian score decay.
 
+:func:`batched_pose_nms` is the single-class pose form: exact mode through K1, every
+other mode fast NMS, as the JAX function.
+
 Top-k everywhere is a stable descending sort, so ties go to the lowest index
 first, as ``jax.lax.top_k`` does (``torch.topk`` does not promise that order).
 """
@@ -162,3 +165,67 @@ def batched_nms(
         out_scores = torch.nn.functional.pad(out_scores, (0, pad))
         out_labels = torch.nn.functional.pad(out_labels, (0, pad), value=-1)
     return NMSOutput(out_boxes, out_scores, out_labels, num)
+
+
+class PoseNMSOutput(NamedTuple):
+    """Fixed-shape pose output."""
+
+    poses: torch.Tensor  # [B, max_predictions, J, 3] (x, y, joint score)
+    boxes: torch.Tensor  # [B, max_predictions, 4] xyxy
+    scores: torch.Tensor  # [B, max_predictions]
+    num_detections: torch.Tensor  # [B] int32
+
+
+def batched_pose_nms(
+    boxes: torch.Tensor,  # [B, A, 4] xyxy
+    scores: torch.Tensor,  # [B, A] or [B, A, 1]
+    pose_coords: torch.Tensor,  # [B, A, J, 2]
+    pose_scores: torch.Tensor,  # [B, A, J]
+    score_threshold: float = 0.1,
+    iou_threshold: float = 0.7,
+    nms_top_k: int = 1024,
+    max_predictions: int = 30,
+    mode: str = "exact",
+) -> PoseNMSOutput:
+    """Single-class NMS carrying each anchor's keypoints.
+
+    The top ``nms_top_k`` anchors by score, in fp32, go through suppression:
+    ``mode="exact"`` is greedy NMS through kernel K1 (no class offset); every other
+    mode, ``"pallas"`` included, is fast NMS, as in the JAX function. The kept
+    candidates are compacted by a second top-k of the scores with the suppressed ones
+    at -1 (both top-k stable: ties to the lowest index, as ``jax.lax.top_k``).
+    """
+    if scores.dim() == 3:
+        scores = scores[..., 0]
+    b, a = scores.shape
+    j = pose_coords.shape[2]
+    k = min(nms_top_k, a)
+    top_scores, aidx = _top_k(scores, k)
+    top_scores = top_scores.float()
+    cand_boxes = torch.gather(boxes, 1, aidx[:, :, None].expand(b, k, 4)).float()
+    cand_poses = torch.cat([
+        torch.gather(pose_coords, 1, aidx[:, :, None, None].expand(b, k, j, 2)).float(),
+        torch.gather(pose_scores, 1, aidx[:, :, None].expand(b, k, j)).float()[..., None],
+    ], dim=-1)  # [B, K, J, 3]
+    valid = top_scores > score_threshold
+
+    if mode == "exact":
+        keep = exact_nms_keep(cand_boxes.contiguous(), valid, iou_threshold)
+    else:
+        keep = _fast_keep_mask(box_iou(cand_boxes, cand_boxes), valid, iou_threshold)
+
+    m = min(max_predictions, k)
+    out_scores, oidx = _top_k(torch.where(keep, top_scores, -1.0), m)
+    out_boxes = torch.gather(cand_boxes, 1, oidx[:, :, None].expand(b, m, 4))
+    out_poses = torch.gather(cand_poses, 1, oidx[:, :, None, None].expand(b, m, j, 3))
+    valid_out = out_scores > 0
+    out_scores = torch.where(valid_out, out_scores, 0.0)
+    out_boxes = torch.where(valid_out[:, :, None], out_boxes, 0.0)
+    out_poses = torch.where(valid_out[:, :, None, None], out_poses, 0.0)
+    num = valid_out.sum(dim=1, dtype=torch.int32)
+    if m < max_predictions:  # pad to the requested static size
+        pad = max_predictions - m
+        out_poses = torch.nn.functional.pad(out_poses, (0, 0, 0, 0, 0, pad))
+        out_boxes = torch.nn.functional.pad(out_boxes, (0, 0, 0, pad))
+        out_scores = torch.nn.functional.pad(out_scores, (0, pad))
+    return PoseNMSOutput(out_poses, out_boxes, out_scores, num)

@@ -11,9 +11,10 @@ process.
 
 ``get(name, dataset_params, dataloader_params)`` builds a registered loader:
 ``coco2017_train_yolo_nas`` / ``coco2017_val_yolo_nas``, ``roboflow_train`` /
-``roboflow_val`` and ``detection_test_dataloader``. Their detection datasets end in
-``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the
-trainer to standardize on the device.
+``roboflow_val``, ``detection_test_dataloader``, ``coco2017_pose_train`` /
+``coco2017_pose_val`` and ``pose_test_dataloader``. The COCO detection datasets end in
+``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the trainer
+to standardize on the device; the pose datasets yield float32 images.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from super_gradients_tpu_torch.common.registry import DATALOADERS, register_dataloader
-from super_gradients_tpu_torch.training.datasets import COCODetectionDataset
+from super_gradients_tpu_torch.training.datasets import COCODetectionDataset, COCOPoseEstimationDataset
 from super_gradients_tpu_torch.training.datasets_roboflow import RoboflowDetectionDataset
 from super_gradients_tpu_torch.training.transforms.detection import (
     DetectionHorizontalFlip,
@@ -35,6 +36,12 @@ from super_gradients_tpu_torch.training.transforms.detection import (
     DetectionPaddedRescale,
     DetectionRandomAffine,
     DetectionStandardize,
+)
+from super_gradients_tpu_torch.training.transforms.keypoints import (
+    KeypointsHorizontalFlip,
+    KeypointsLongestMaxSize,
+    KeypointsPadIfNeeded,
+    KeypointsStandardize,
 )
 
 
@@ -65,6 +72,43 @@ class RandomDetectionDataset:
         cls = rng.randint(0, self.num_classes, size=(n, 1)).astype(np.float32)
         target = np.full((self.max_boxes, 5), -1.0, dtype=np.float32)
         target[:n] = np.concatenate([cls, x1y1, x2y2], axis=1)
+        return np.ascontiguousarray(img.transpose(2, 0, 1)), target
+
+
+class RandomPoseDataset:
+    """Images ``[3, H, W]`` float32 in [0, 1) and padded ``[max_poses, 5 + 3J]`` targets
+    (0, box, J x (x, y, visibility); ``-1`` rows pad). Sample ``i`` is drawn from
+    ``np.random.RandomState(seed + i)``: the JAX dataset's sample ``i``, its image NCHW."""
+
+    def __init__(self, num_samples: int = 16, image_size: Tuple[int, int] = (64, 64), num_joints: int = 17,
+                 max_poses: int = 8, seed: int = 0):
+        self.num_samples = num_samples
+        self.image_size = tuple(image_size)
+        self.num_joints = num_joints
+        self.max_poses = max_poses
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed + i)
+        h, w = self.image_size
+        k = self.num_joints
+        img = rng.rand(h, w, 3).astype(np.float32)
+        n = rng.randint(1, max(2, self.max_poses // 2))
+        target = np.full((self.max_poses, 5 + 3 * k), -1.0, dtype=np.float32)
+        for j in range(n):
+            cx, cy = rng.rand(2) * [w * 0.6, h * 0.6] + [w * 0.2, h * 0.2]
+            bw, bh = rng.rand(2) * [w * 0.3, h * 0.3] + 10
+            x1, y1 = max(cx - bw / 2, 0), max(cy - bh / 2, 0)
+            x2, y2 = min(cx + bw / 2, w), min(cy + bh / 2, h)
+            kp = np.stack([
+                rng.uniform(x1, x2, k), rng.uniform(y1, y2, k), rng.randint(0, 3, k).astype(np.float64)
+            ], axis=1)
+            target[j, 0] = 0.0
+            target[j, 1:5] = [x1, y1, x2, y2]
+            target[j, 5:] = kp.reshape(-1)
         return np.ascontiguousarray(img.transpose(2, 0, 1)), target
 
 
@@ -228,4 +272,38 @@ def roboflow_train(data_dir: str, dataset_name: str, batch_size: int = 16, image
 def roboflow_val(data_dir: str, dataset_name: str, batch_size: int = 32, image_size=(640, 640), **kw) -> DataLoader:
     ds = RoboflowDetectionDataset(data_dir=data_dir, dataset_name=dataset_name, split="valid",
                                   transforms=_yolo_nas_val_transforms(tuple(image_size)))
+    return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False, **_loader_kwargs(kw))
+
+
+@register_dataloader("pose_test_dataloader")
+def pose_test_dataloader(batch_size: int = 8, image_size: Tuple[int, int] = (64, 64), dataset_size: int = 16,
+                         num_joints: int = 17, **kw) -> DataLoader:
+    return DataLoader(RandomPoseDataset(dataset_size, image_size, num_joints), batch_size=batch_size, shuffle=True,
+                      **_loader_kwargs(kw))
+
+
+def _pose_transforms(image_size, train: bool):
+    ts = [KeypointsLongestMaxSize(max_height=image_size[0], max_width=image_size[1]),
+          KeypointsPadIfNeeded(min_height=image_size[0], min_width=image_size[1]),
+          KeypointsStandardize(max_value=255.0)]
+    if train:
+        ts.insert(0, KeypointsHorizontalFlip(prob=0.5))
+    return ts
+
+
+@register_dataloader("coco2017_pose_train")
+def coco2017_pose_train(data_dir: str, batch_size: int = 16, image_size=(640, 640), max_poses: int = 30,
+                        json_file: str = "person_keypoints_train2017.json", subdir: str = "images/train2017",
+                        **kw) -> DataLoader:
+    ds = COCOPoseEstimationDataset(data_dir=data_dir, json_annotation_file=json_file, images_dir=subdir,
+                                   max_poses=max_poses, transforms=_pose_transforms(tuple(image_size), True))
+    return DataLoader(ds, batch_size=batch_size, shuffle=True, drop_last=True, **_loader_kwargs(kw))
+
+
+@register_dataloader("coco2017_pose_val")
+def coco2017_pose_val(data_dir: str, batch_size: int = 32, image_size=(640, 640), max_poses: int = 30,
+                      json_file: str = "person_keypoints_val2017.json", subdir: str = "images/val2017",
+                      **kw) -> DataLoader:
+    ds = COCOPoseEstimationDataset(data_dir=data_dir, json_annotation_file=json_file, images_dir=subdir,
+                                   max_poses=max_poses, transforms=_pose_transforms(tuple(image_size), False))
     return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False, **_loader_kwargs(kw))

@@ -1,4 +1,4 @@
-"""Detection datasets (counterpart of ``super_gradients_tpu/training/datasets.py``).
+"""Detection and pose datasets (counterpart of ``super_gradients_tpu/training/datasets.py``).
 
 A sample leaves the dataset as ``(image [3, H, W], targets [max_boxes, 5])``
 (cls, x1, y1, x2, y2; ``-1`` rows pad), or ``[max_boxes, 6]`` with an is-crowd
@@ -12,6 +12,9 @@ Randomness: each dataset owns one ``random.Random`` (the transforms' draws) and 
 seeded with ``seed``; DataLoader workers reseed both from their worker seed. For the
 same seed a dataset draws what the JAX dataset draws from the global ``random`` and
 ``np.random``.
+
+:class:`COCOPoseEstimationDataset` yields ``(image [3, H, W] float32, targets
+[max_poses, 5 + 3J])``.
 
 Image files are read through PIL, imported where a file is read, so that the module
 imports without it.
@@ -335,3 +338,61 @@ class YoloDarknetFormatDetectionDataset(DetectionDataset):
             self._annotations.append(
                 dict(img_path=img_path, boxes_xyxy=np.asarray(boxes, np.float32).reshape(-1, 4), labels=np.asarray(labels, np.int32))
             )
+
+
+class COCOPoseEstimationDataset:
+    """A COCO ``person_keypoints`` json (stdlib ``json``) -> ``(image [3, H, W], targets
+    [max_poses, 5 + 3J])`` (0, x1, y1, x2, y2, J x (x, y, visibility); ``-1`` rows pad).
+
+    Crowd annotations and those with fewer than ``min_visible_joints`` labelled joints
+    are skipped, and so are images left without a person. The image is what the chain
+    leaves, float32 after ``KeypointsStandardize`` (the JAX division, which the trainer's
+    uint8 standardization would not reproduce to the bit). The flip draws from the
+    dataset's ``random.Random``, seeded with ``seed`` and reseeded by each loader worker.
+    """
+
+    def __init__(self, data_dir: str, json_annotation_file: str, images_dir: str = "", max_poses: int = 30,
+                 num_joints: int = 17, transforms: Optional[Sequence] = None, min_visible_joints: int = 1,
+                 seed: int = 0):
+        from super_gradients_tpu_torch.training.transforms.keypoints import ComposeKeypointTransforms
+
+        self.data_dir = data_dir
+        self.images_dir = images_dir
+        self.max_poses = max_poses
+        self.num_joints = num_joints
+        self.transforms = ComposeKeypointTransforms(transforms or [])
+        self.rng = random.Random()
+        self.reseed(seed)
+        with open(os.path.join(data_dir, json_annotation_file)) as f:
+            coco = json.load(f)
+        anns_by_img: Dict[int, List] = {}
+        for a in coco.get("annotations", []):
+            if a.get("iscrowd", 0) or a.get("num_keypoints", 0) < min_visible_joints:
+                continue
+            anns_by_img.setdefault(a["image_id"], []).append(a)
+        self.items = []
+        for img in coco.get("images", []):
+            anns = anns_by_img.get(img["id"], [])
+            if anns:
+                self.items.append((os.path.join(data_dir, images_dir, img["file_name"]), anns))
+
+    def reseed(self, seed: int) -> None:
+        """Seed the transforms' generator (a DataLoader worker calls it with its own seed)."""
+        self.rng.seed(seed)
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        from super_gradients_tpu_torch.training.transforms.keypoints import PoseSample
+
+        path, anns = self.items[i]
+        boxes, joints = [], []
+        for a in anns:
+            x, y, w, h = a["bbox"]
+            boxes.append([x, y, x + w, y + h])
+            joints.append(np.asarray(a["keypoints"], np.float32).reshape(self.num_joints, 3))
+        sample = PoseSample(load_image(path), np.asarray(boxes, np.float32), np.stack(joints))
+        sample = self.transforms(sample, self.rng)
+        image = np.asarray(sample.image, np.float32)
+        return np.ascontiguousarray(image.transpose(2, 0, 1)), sample.to_padded_targets(self.max_poses)

@@ -1,8 +1,9 @@
 """Loss registry surface of the port (counterpart of
-``super_gradients_tpu/training/losses/__init__.py``; PPYoloELoss only so far)."""
+``super_gradients_tpu/training/losses/__init__.py``; PPYoloELoss and YoloNASPoseLoss so far)."""
 
 from super_gradients_tpu_torch.common.registry import LOSSES
 from super_gradients_tpu_torch.training.losses.ppyolo_loss import PPYoloELoss  # noqa: F401
+from super_gradients_tpu_torch.training.losses.yolo_nas_pose_loss import YoloNASPoseLoss  # noqa: F401
 
 
 def get_loss(name_or_loss, criterion_params=None):

@@ -1,5 +1,5 @@
 """Metrics of the port (counterpart of ``super_gradients_tpu/training/metrics/__init__.py``;
-the detection metrics only so far)."""
+the detection and pose metrics so far)."""
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import METRICS
@@ -11,13 +11,13 @@ from super_gradients_tpu_torch.training.metrics.detection import (  # noqa: F401
     DetectionMetrics_075,
     DetectionMetricsDistanceBased,
 )
+from super_gradients_tpu_torch.training.metrics.pose_estimation import PoseEstimationMetrics  # noqa: F401
 
 _BREADTH = "ROADMAP.md queue 1, 'Breadth'"
 # registered in the JAX package, not here yet
 NOT_PORTED = {
     **dict.fromkeys(("Accuracy", "Top5", "ToyTestClassificationMetric"), _BREADTH + " (classification)"),
     **dict.fromkeys(("Dice", "IoU", "PixelAccuracy", "BinaryDice", "BinaryIOU", "BinaryIoU"), _BREADTH + " (segmentation)"),
-    "PoseEstimationMetrics": _BREADTH + " (pose)",
     **dict.fromkeys(("DeltaMetric", "DepthMAE", "DepthMSE", "DepthRMSE"), _BREADTH + " (depth)"),
 }
 

@@ -4,15 +4,16 @@
 additional_callbacks)`` trains a copy of ``model.net`` on the model's device (the
 GPU unless the caller passes a CPU model) and hands the EMA weights (or the live
 ones without EMA) back through ``model.load_state_dict``. Each batch is one
-micro-step of :class:`TrainStep`: forward under the bf16 policy, PPYoloELoss (or
-any registered loss) in fp32, backward; every ``batch_accumulate`` micro-steps
-the mean gradient is clipped, the LR set from the schedule and the optimizer and
-EMA stepped, as optax ``MultiSteps`` does.
+micro-step of :class:`TrainStep`: forward under the bf16 policy, the registered loss
+(``PPYoloELoss``, ``YoloNASPoseLoss``) in fp32, backward; every ``batch_accumulate``
+micro-steps the mean gradient is clipped, the LR set from the schedule and the
+optimizer and EMA stepped, as optax ``MultiSteps`` does.
 
 Around the steps, as in the JAX trainer: validation every ``run_validation_freq``
 epochs and at the last one (EMA weights, eval-mode BN, the training's bf16 policy,
-outputs cast to fp32 before the loss and the metrics; ``DetectionMetrics`` runs
-``batched_nms`` on the device, kernel K1 on a GPU, and matches on the host),
+outputs cast to fp32 before the loss and the metrics; ``DetectionMetrics`` and
+``PoseEstimationMetrics`` run ``batched_nms`` / ``batched_pose_nms`` on the device,
+kernel K1 on a GPU, and match on the host),
 ``test_loaders``, ``train_metrics_list``, phase callbacks, the experiment logger,
 ``.pth`` checkpoints (``ckpt_latest``, ``ckpt_best``, ``ckpt_epoch_N``,
 ``average_model``) in ``<ckpt_root_dir>/<experiment>/RUN_<ts>/`` with

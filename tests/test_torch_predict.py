@@ -232,10 +232,11 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
-    surface imports, predict takes the no-cv2 letterbox, reading an image or a YAML recipe
-    raises an ImportError that names PIL or PyYAML, and, once PIL is back, a COCO-format
-    dataset of PNGs runs one sample through the YOLO-NAS train chain (cv2 still blocked:
-    the numpy / torch stand-ins)."""
+    surface (the pose modules included) imports, detection and pose predict take the
+    no-cv2 letterbox, reading an image or a YAML recipe raises an ImportError that names
+    PIL or PyYAML, and, once PIL is back, a COCO-format dataset of PNGs runs one sample
+    through the YOLO-NAS train chain (cv2 still blocked: the numpy / torch stand-ins) and
+    a person-keypoints one through the pose train chain."""
     rng = np.random.RandomState(1)
     os.makedirs(tmp_path / "images")
     for i in range(4):
@@ -246,6 +247,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
                             for i in range(4)],
             "categories": [{"id": 1, "name": "a"}]}
     (tmp_path / "coco.json").write_text(json.dumps(coco))
+    kps = [{"id": i, "image_id": i, "category_id": 1, "bbox": [4, 4, 20, 16], "iscrowd": 0, "num_keypoints": 17,
+            "keypoints": [10, 10, 2] * 17} for i in range(4)]
+    (tmp_path / "person_keypoints.json").write_text(json.dumps({**coco, "annotations": kps}))
     code = textwrap.dedent(
         f"""
         import sys
@@ -260,6 +264,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.training import Trainer, dataloaders, datasets, datasets_roboflow
         from super_gradients_tpu_torch.training import callbacks, pre_launch_callbacks, samplers
         from super_gradients_tpu_torch.inference import media, prediction_results, processing, stream, video
+        from super_gradients_tpu_torch.models.pose import yolo_nas_pose
+        from super_gradients_tpu_torch.training.losses import yolo_nas_pose_loss
+        from super_gradients_tpu_torch.training.metrics import pose_estimation
+        from super_gradients_tpu_torch.training.transforms import keypoints
         assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
@@ -269,6 +277,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         preds = model.predict([rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)])
         assert len(preds) == 1 and len(preds[0]) > 0, len(preds[0])
         assert np.isfinite(preds[0].bboxes_xyxy).all()
+        pose = models.get("yolo_nas_pose_n", image_size=64, device="cpu")
+        poses = pose.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], conf=0.01)
+        assert len(poses[0]) > 0 and poses[0].poses.shape[1:] == (17, 3) and np.isfinite(poses[0].poses).all()
         try:
             datasets.load_image({str(tmp_path / "x.jpg")!r})
         except ImportError as e:
@@ -286,6 +297,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
                                                  transforms=dataloaders._yolo_nas_train_transforms((64, 64)))
         image, target = ds[0]
         assert image.dtype == np.uint8 and image.shape == (3, 64, 64) and ds.max_value == 255.0
+        pds = datasets.COCOPoseEstimationDataset({str(tmp_path)!r}, "person_keypoints.json", "images",
+                                                 transforms=dataloaders._pose_transforms((64, 64), True))
+        image, target = pds[0]
+        assert image.dtype == np.float32 and image.shape == (3, 64, 64) and target.shape == (30, 56)
         print("OK", len(preds[0]))
         """
     )

@@ -1,12 +1,14 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
-``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS and YOLO-NAS-POSE).
+``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, YOLO-NAS-POSE and
+the ResNet family).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
-of those rules (``YOLO_NAS_RULES``, ``YOLO_NAS_POSE_RULES``, ``_GENERIC_RULES``,
-``_LEAF_MAP``) and inverts the layout transforms:
+of those rules (``YOLO_NAS_RULES``, ``YOLO_NAS_POSE_RULES``, ``RESNET_RULES``,
+``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout transforms:
 
 - conv kernel HWIO -> OIHW;
+- dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
 - conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``;
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
   plus a ``num_batches_tracked`` of 0 so that ``load_state_dict(strict=True)`` passes.
@@ -65,6 +67,14 @@ YOLO_NAS_POSE_RULES: Rules = YOLO_NAS_RULES + (
 )
 
 
+# ResNet: the shortcut's conv and BN are a Sequential's items 0 and 1; the flat block
+# names `layer1_0` become `layer1.0` by the generic rules
+RESNET_RULES: Rules = (
+    (r"shortcut_conv", "shortcut.0"),
+    (r"shortcut_bn", "shortcut.1"),
+)
+
+
 def _translate(path: Tuple[str, ...], rules: Rules) -> str:
     *parents, leaf = path
     name = ".".join(parents)
@@ -79,8 +89,10 @@ def _translate(path: Tuple[str, ...], rules: Rules) -> str:
 def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
     if path[-1] != "kernel":
         return value
+    if value.ndim == 2:
+        return value.T  # dense [in, out] -> Linear [out, in]
     if value.ndim != 4:
-        raise ValueError(f"{'/'.join(path)}: only conv kernels are converted, got shape {value.shape}")
+        raise ValueError(f"{'/'.join(path)}: only conv and dense kernels are converted, got shape {value.shape}")
     if "upsample" in path[-2]:
         return value.transpose(2, 3, 0, 1)  # [kh, kw, in, out] -> ConvTranspose2d [in, out, kh, kw]
     return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW

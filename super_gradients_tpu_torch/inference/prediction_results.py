@@ -3,8 +3,9 @@
 A :class:`DetectionPrediction` draws its boxes and labels on its image with PIL (imported
 at the call), in the JAX package's colours, text and layout, and a
 :class:`PoseEstimationPrediction` its skeletons; :class:`ImagesPredictions` saves every
-image's drawing, :class:`VideoPredictions` writes them as a video. Classification and
-segmentation predictions come with their model families.
+image's drawing, :class:`VideoPredictions` writes them as a video. A
+:class:`ClassificationPrediction` holds the top-k labels and their probabilities; it has
+no drawing, as in the JAX package. Segmentation predictions come with their model family.
 """
 
 from __future__ import annotations
@@ -58,6 +59,20 @@ class DetectionPrediction:
     def show(self, **kwargs) -> np.ndarray:
         """The drawing (there is no display to show it on a server)."""
         return self.draw(**kwargs)
+
+
+@dataclasses.dataclass
+class ClassificationPrediction:
+    """Per-image classification result: the top-k labels, most probable first."""
+
+    confidence: np.ndarray  # [k] softmax probabilities
+    labels: np.ndarray  # [k] int
+    class_names: Optional[List[str]] = None
+    image: Optional[np.ndarray] = None  # HWC RGB uint8
+
+    @property
+    def prediction(self) -> int:
+        return int(self.labels[0])
 
 
 @dataclasses.dataclass

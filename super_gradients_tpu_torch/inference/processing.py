@@ -1,6 +1,6 @@
 """Host-side image processing for predict (the subset of
 ``super_gradients_tpu/inference/processing.py`` that the YOLO-NAS and YOLO-NAS-POSE
-COCO processing use).
+COCO processing and the ImageNet classification processing use).
 
 numpy in, numpy out, one image at a time. The letterbox resize is the JAX
 package's call, ``cv2.resize(..., INTER_LINEAR)``, wherever cv2 imports (cv2 is
@@ -148,6 +148,71 @@ class StandardizeImage(Processing):
         return image.astype(np.float32) / self.max_value, ProcessingMetadata(original_hw=image.shape[:2])
 
 
+class NormalizeImage(Processing):
+    """``(image - mean) / std`` per channel, in float32."""
+
+    def __init__(self, mean: Sequence[float], std: Sequence[float]):
+        self.mean = np.asarray(mean, dtype=np.float32)
+        self.std = np.asarray(std, dtype=np.float32)
+
+    def preprocess_image(self, image):
+        return (image.astype(np.float32) - self.mean) / self.std, ProcessingMetadata(original_hw=image.shape[:2])
+
+
+class Resize(Processing):
+    """Scale so that the shorter side reaches ``size`` (``max(size / h, size / w)``), the
+    new sides truncated by ``int``."""
+
+    def __init__(self, size: int = 224):
+        self.size = int(size)
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        scale = max(self.size / h, self.size / w)
+        if scale != 1.0:
+            image = resize(image, (int(h * scale), int(w * scale)))
+        return image, ProcessingMetadata(scale=scale, original_hw=(h, w))
+
+
+class CenterCrop(Processing):
+    """The centred ``size`` x ``size`` crop."""
+
+    def __init__(self, size: int = 224):
+        self.size = int(size)
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        top, left = (h - self.size) // 2, (w - self.size) // 2
+        return image[top : top + self.size, left : left + self.size], ProcessingMetadata(original_hw=(h, w))
+
+
+class ClassificationResize(Processing):
+    """Resize to ``size`` x ``size``, the aspect ratio not kept."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        return resize(image, (self.size, self.size)), ProcessingMetadata(original_hw=(h, w))
+
+
+class ClassificationResizeShortestCrop(Processing):
+    """Scale the shorter side to ``resize`` (the new sides rounded, where :class:`Resize`
+    truncates), then the centred ``crop`` x ``crop``: the ImageNet evaluation geometry."""
+
+    def __init__(self, resize: int = 256, crop: int = 224):
+        self.resize, self.crop = resize, crop
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        scale = self.resize / min(h, w)
+        image = resize(image, (round(h * scale), round(w * scale)))
+        hh, ww = image.shape[:2]
+        top, left = (hh - self.crop) // 2, (ww - self.crop) // 2
+        return image[top : top + self.crop, left : left + self.crop], ProcessingMetadata(original_hw=(h, w))
+
+
 class ReverseImageChannels(Processing):
     """RGB <-> BGR."""
 
@@ -188,6 +253,32 @@ def default_yolo_nas_coco_processing(image_size: int = 640) -> ComposeProcessing
             DetectionCenterPadding((image_size, image_size), 114),
             StandardizeImage(255.0),
         ]
+    )
+
+
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
+
+
+def default_imagenet_processing(resize: int = 256, crop: int = 224) -> ComposeProcessing:
+    """What ``models.get("resnet*")`` predicts with: the shorter side to 256, the centred
+    224 crop, /255, then the ImageNet mean and std."""
+    return ComposeProcessing(
+        [
+            ClassificationResizeShortestCrop(resize, crop),
+            StandardizeImage(255.0),
+            NormalizeImage(mean=IMAGENET_MEAN, std=IMAGENET_STD),
+        ]
+    )
+
+
+def default_imagenet_processing_params() -> Dict[str, Any]:
+    """The published ImageNet processing parameters: :class:`Resize` (256), :class:`CenterCrop`
+    (224), /255 and the ImageNet mean and std."""
+    return dict(
+        image_processor=ComposeProcessing(
+            [Resize(256), CenterCrop(224), StandardizeImage(255.0), NormalizeImage(mean=IMAGENET_MEAN, std=IMAGENET_STD)]
+        ),
     )
 
 

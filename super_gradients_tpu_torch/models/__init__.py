@@ -2,6 +2,11 @@
 
 from super_gradients_tpu_torch.models import all_models  # noqa: F401  (registers the architectures)
 from super_gradients_tpu_torch.models.model_factory import get
-from super_gradients_tpu_torch.models.sg_model import DetectionModel, PoseEstimationModel, SgModel
+from super_gradients_tpu_torch.models.sg_model import (
+    ClassificationModel,
+    DetectionModel,
+    PoseEstimationModel,
+    SgModel,
+)
 
-__all__ = ["get", "DetectionModel", "PoseEstimationModel", "SgModel"]
+__all__ = ["get", "ClassificationModel", "DetectionModel", "PoseEstimationModel", "SgModel"]

@@ -1,4 +1,4 @@
-"""Architecture registrations of the port (the YOLO-NAS and YOLO-NAS-POSE rows of
+"""Architecture registrations of the port (the ResNet, YOLO-NAS and YOLO-NAS-POSE rows of
 ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
@@ -6,7 +6,11 @@ from __future__ import annotations
 import dataclasses
 
 from super_gradients_tpu_torch.common.registry import register_model
-from super_gradients_tpu_torch.inference.processing import default_yolo_nas_coco_processing
+from super_gradients_tpu_torch.inference.processing import (
+    default_imagenet_processing,
+    default_yolo_nas_coco_processing,
+)
+from super_gradients_tpu_torch.models.classification.resnet import CifarResNet, ResNet
 from super_gradients_tpu_torch.models.class_names import (
     COCO_DETECTION_CLASSES_LIST,
     COCO_POSE_EDGE_LINKS,
@@ -28,7 +32,52 @@ from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
     yolo_nas_pose_n_config,
     yolo_nas_pose_s_config,
 )
-from super_gradients_tpu_torch.models.sg_model import PoseEstimationModel
+from super_gradients_tpu_torch.models.sg_model import ClassificationModel, PoseEstimationModel
+
+
+def _resnet_spec(num_blocks, block, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    """An ImageNet ResNet at 224x224 with the ImageNet processing; ``arch_params`` gives
+    ``num_classes`` (1000 by default) and ``width_mult``, as in the JAX zoo."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 1000)
+    net = ResNet(num_blocks=tuple(num_blocks), num_classes=nc, block=block, width_mult=arch_params.get("width_mult", 1.0))
+    return ModelSpec(net=net, num_classes=nc, input_hw=(224, 224), processing=default_imagenet_processing(),
+                     model_cls=ClassificationModel)
+
+
+@register_model("resnet18")
+def resnet18(**kw):
+    return _resnet_spec([2, 2, 2, 2], "basic", **kw)
+
+
+@register_model("resnet34")
+def resnet34(**kw):
+    return _resnet_spec([3, 4, 6, 3], "basic", **kw)
+
+
+@register_model("resnet50")
+def resnet50(**kw):
+    return _resnet_spec([3, 4, 6, 3], "bottleneck", **kw)
+
+
+@register_model("resnet101")
+def resnet101(**kw):
+    return _resnet_spec([3, 4, 23, 3], "bottleneck", **kw)
+
+
+@register_model("resnet152")
+def resnet152(**kw):
+    return _resnet_spec([3, 8, 36, 3], "bottleneck", **kw)
+
+
+@register_model("resnet18_cifar")
+def resnet18_cifar(num_classes=None, arch_params=None, **kw):
+    """The CIFAR ResNet-18 at 32x32 (10 classes by default), without processing: as in
+    the JAX zoo, it reads neither ``arch_params`` nor a width."""
+    nc = num_classes or 10
+    return ModelSpec(net=CifarResNet(num_blocks=(2, 2, 2, 2), num_classes=nc, block="basic"), num_classes=nc,
+                     input_hw=(32, 32), model_cls=ClassificationModel)
+
 
 _FUSED = {"none": False, "full": True}  # the JAX package's `fused` values that the port builds
 

@@ -4,7 +4,7 @@
 Each registered architecture is a builder returning a :class:`ModelSpec`; ``get``
 initializes the network from a seeded ``torch.Generator`` on the CPU, moves it to
 the requested device and wraps it in the task model that the spec names
-(:class:`DetectionModel` or :class:`PoseEstimationModel`).
+(:class:`DetectionModel`, :class:`PoseEstimationModel` or :class:`ClassificationModel`).
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
-"""SgModel / DetectionModel / PoseEstimationModel: an ``nn.Module`` + task metadata with a
-predict() surface (counterpart of ``super_gradients_tpu/models/sg_model.py``).
+"""SgModel / DetectionModel / PoseEstimationModel / ClassificationModel: an ``nn.Module`` +
+task metadata with a predict() surface (counterpart of ``super_gradients_tpu/models/sg_model.py``).
 
 The JAX package compiles preprocess-forward-decode-NMS into one XLA program per
 shape. Here the same steps run eagerly: host processing per image (numpy), then
 per batch one forward of the deploy-form network on the model's device, the
 fp32 decode, and ``batched_nms`` (detection) or ``batched_pose_nms`` (pose) whose
-exact mode is the hand-written CUDA kernel K1 on a GPU. ``predict`` takes arrays, PIL
+exact mode is the hand-written CUDA kernel K1 on a GPU; classification takes a softmax on
+the device and the top-k on the host. ``predict`` takes arrays, PIL
 images, image files, folders and video files (``predict_video``); ``predict_webcam``
 runs on a capture device.
 """
@@ -22,6 +23,7 @@ from torch import nn
 
 from super_gradients_tpu_torch.inference.media import images_to_list
 from super_gradients_tpu_torch.inference.prediction_results import (
+    ClassificationPrediction,
     DetectionPrediction,
     ImagesPredictions,
     PoseEstimationPrediction,
@@ -130,8 +132,9 @@ class SgModel:
             self._deploy_nets[key] = net.eval()
         return self._deploy_nets[key]
 
-    def _prep_host_batches(self, images, batch_size: int):
-        """Host side: geometric + photometric preprocessing per image, grouped in batches."""
+    def _prep_host_batches(self, images, batch_size: int, pad_last: bool = False):
+        """Host side: geometric + photometric preprocessing per image, grouped in batches;
+        with ``pad_last`` the last batch is filled up to ``batch_size`` with zero images."""
         image_list = images_to_list(images)
         processed, metas = [], []
         for img in image_list:
@@ -141,6 +144,8 @@ class SgModel:
                 out, meta = img, None
             processed.append(np.asarray(out, dtype=np.float32))
             metas.append(meta)
+        if pad_last and len(processed) % batch_size:
+            processed += [np.zeros_like(processed[0])] * (batch_size - len(processed) % batch_size)
         batches = [np.stack(processed[i : i + batch_size]) for i in range(0, len(processed), batch_size)]
         return image_list, batches, metas
 
@@ -334,3 +339,33 @@ class PoseEstimationModel(SgModel):
             max_predictions or self._default_post_nms_max_predictions,
             nms_mode, fuse_model, bf16,
         )
+
+
+class ClassificationModel(SgModel):
+    """Classification task wrapper: an fp32 forward in eval mode, the softmax on the device
+    and the top-k on the host (``np.argsort(-probs)``, as the JAX model ranks them)."""
+
+    task = "classification"
+
+    @torch.inference_mode()
+    def _probabilities(self, images) -> torch.Tensor:
+        net = self._deploy_net(False, False)
+        x = torch.as_tensor(images).to(self.device, torch.float32).permute(0, 3, 1, 2)
+        return torch.softmax(net(x), dim=-1)
+
+    def predict(self, images, batch_size: int = 32, top_k: int = 5) -> ImagesPredictions:
+        """Predict on RGB images of any sizes (an HWC / NHWC array, a PIL image, an image
+        file, a folder of them or a list of these). The last batch is filled up with zero
+        images, as in the JAX package. Returns per-image :class:`ClassificationPrediction`s
+        of the ``top_k`` most probable classes."""
+        image_list, batches, _ = self._prep_host_batches(images, batch_size, pad_last=True)
+        predictions: List[ClassificationPrediction] = []
+        for batch in batches:
+            probs = self._probabilities(torch.from_numpy(batch)).cpu().numpy()
+            for j in range(min(len(batch), len(image_list) - len(predictions))):
+                order = np.argsort(-probs[j])[:top_k]
+                predictions.append(ClassificationPrediction(
+                    confidence=probs[j][order], labels=order, class_names=self._class_names,
+                    image=image_list[len(predictions)],
+                ))
+        return ImagesPredictions(predictions)

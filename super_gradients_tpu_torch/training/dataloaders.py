@@ -12,21 +12,33 @@ process.
 ``get(name, dataset_params, dataloader_params)`` builds a registered loader:
 ``coco2017_train_yolo_nas`` / ``coco2017_val_yolo_nas``, ``roboflow_train`` /
 ``roboflow_val``, ``detection_test_dataloader``, ``coco2017_pose_train`` /
-``coco2017_pose_val`` and ``pose_test_dataloader``. The COCO detection datasets end in
+``coco2017_pose_val``, ``pose_test_dataloader``, and for classification
+``classification_test_dataloader``, ``imagenet_train`` / ``imagenet_val``,
+``imagenet_resnet50_train`` / ``imagenet_resnet50_val``,
+``cifar10_train`` / ``cifar10_val``, ``cifar100_train`` / ``cifar100_val`` and
+``mnist_train`` / ``mnist_val``. The COCO detection datasets end in
 ``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the trainer
-to standardize on the device; the pose datasets yield float32 images.
+to standardize on the device; the pose and classification datasets yield float32 images.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from super_gradients_tpu_torch.common.registry import DATALOADERS, register_dataloader
-from super_gradients_tpu_torch.training.datasets import COCODetectionDataset, COCOPoseEstimationDataset
+from super_gradients_tpu_torch.training.datasets import (
+    CIFAR10Dataset,
+    CIFAR100Dataset,
+    COCODetectionDataset,
+    COCOPoseEstimationDataset,
+    ImageFolderDataset,
+    MNISTDataset,
+)
 from super_gradients_tpu_torch.training.datasets_roboflow import RoboflowDetectionDataset
 from super_gradients_tpu_torch.training.transforms.detection import (
     DetectionHorizontalFlip,
@@ -43,6 +55,27 @@ from super_gradients_tpu_torch.training.transforms.keypoints import (
     KeypointsPadIfNeeded,
     KeypointsStandardize,
 )
+
+
+class RandomClassificationDataset:
+    """Images ``[C, H, W]`` float32 in [0, 1) and int32 labels, all drawn up front from
+    ``np.random.RandomState(seed)``: the JAX dataset's samples, their images CHW."""
+
+    def __init__(self, num_samples: int = 64, image_size: Tuple[int, int] = (64, 64), num_classes: int = 10,
+                 channels: int = 3, seed: int = 0):
+        self.num_samples = num_samples
+        self.image_size = tuple(image_size)
+        self.num_classes = num_classes
+        rng = np.random.RandomState(seed)
+        images = rng.rand(num_samples, *self.image_size, channels).astype(np.float32)
+        self._images = np.ascontiguousarray(images.transpose(0, 3, 1, 2))
+        self._labels = rng.randint(0, num_classes, size=num_samples).astype(np.int32)
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, i):
+        return self._images[i], self._labels[i]
 
 
 class RandomDetectionDataset:
@@ -307,3 +340,78 @@ def coco2017_pose_val(data_dir: str, batch_size: int = 32, image_size=(640, 640)
     ds = COCOPoseEstimationDataset(data_dir=data_dir, json_annotation_file=json_file, images_dir=subdir,
                                    max_poses=max_poses, transforms=_pose_transforms(tuple(image_size), False))
     return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False, **_loader_kwargs(kw))
+
+
+@register_dataloader("classification_test_dataloader")
+def classification_test_dataloader(batch_size: int = 16, image_size: Tuple[int, int] = (64, 64), dataset_size: int = 64,
+                                   num_classes: int = 10, **kw) -> DataLoader:
+    return DataLoader(RandomClassificationDataset(dataset_size, image_size, num_classes), batch_size=batch_size,
+                      shuffle=True, **_loader_kwargs(kw))
+
+
+@register_dataloader("imagenet_train")
+def imagenet_train(data_dir: str, batch_size: int = 128, image_size=(224, 224), **kw) -> DataLoader:
+    return DataLoader(ImageFolderDataset(data_dir, tuple(image_size)), batch_size=batch_size, shuffle=True,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("imagenet_val")
+def imagenet_val(data_dir: str, batch_size: int = 128, image_size=(224, 224), **kw) -> DataLoader:
+    return DataLoader(ImageFolderDataset(data_dir, tuple(image_size)), batch_size=batch_size, shuffle=False,
+                      drop_last=False, **_loader_kwargs(kw))
+
+
+def _split_dir(data_dir: str, split: str) -> str:
+    """``data_dir/<split>`` where that folder exists, else ``data_dir`` itself."""
+    sub = os.path.join(data_dir, split)
+    return sub if os.path.isdir(sub) else data_dir
+
+
+@register_dataloader("imagenet_resnet50_train")
+def imagenet_resnet50_train(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
+    """The ResNet-50 recipe's train loader: the ImageFolder of ``data_dir/train`` (or of
+    ``data_dir``) at 224x224."""
+    return DataLoader(ImageFolderDataset(_split_dir(data_dir, "train"), (224, 224)), batch_size=batch_size,
+                      shuffle=True, **_loader_kwargs(kw))
+
+
+@register_dataloader("imagenet_resnet50_val")
+def imagenet_resnet50_val(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
+    return DataLoader(ImageFolderDataset(_split_dir(data_dir, "val"), (224, 224)), batch_size=batch_size,
+                      shuffle=False, drop_last=False, **_loader_kwargs(kw))
+
+
+@register_dataloader("cifar10_train")
+def cifar10_train(root: str = "/data/cifar10", batch_size: int = 256, **kw) -> DataLoader:
+    return DataLoader(CIFAR10Dataset(root, train=True), batch_size=batch_size, shuffle=True, drop_last=True,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("cifar10_val")
+def cifar10_val(root: str = "/data/cifar10", batch_size: int = 512, **kw) -> DataLoader:
+    return DataLoader(CIFAR10Dataset(root, train=False), batch_size=batch_size, shuffle=False, drop_last=False,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("cifar100_train")
+def cifar100_train(root: str = "/data/cifar100", batch_size: int = 256, **kw) -> DataLoader:
+    return DataLoader(CIFAR100Dataset(root, train=True), batch_size=batch_size, shuffle=True, drop_last=True,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("cifar100_val")
+def cifar100_val(root: str = "/data/cifar100", batch_size: int = 512, **kw) -> DataLoader:
+    return DataLoader(CIFAR100Dataset(root, train=False), batch_size=batch_size, shuffle=False, drop_last=False,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("mnist_train")
+def mnist_train(root: str = "/data/mnist", batch_size: int = 256, **kw) -> DataLoader:
+    return DataLoader(MNISTDataset(root, train=True), batch_size=batch_size, shuffle=True, drop_last=True,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("mnist_val")
+def mnist_val(root: str = "/data/mnist", batch_size: int = 512, **kw) -> DataLoader:
+    return DataLoader(MNISTDataset(root, train=False), batch_size=batch_size, shuffle=False, drop_last=False,
+                      **_loader_kwargs(kw))

@@ -1,4 +1,5 @@
-"""Detection and pose datasets (counterpart of ``super_gradients_tpu/training/datasets.py``).
+"""Detection, pose and classification datasets (counterpart of
+``super_gradients_tpu/training/datasets.py``).
 
 A sample leaves the dataset as ``(image [3, H, W], targets [max_boxes, 5])``
 (cls, x1, y1, x2, y2; ``-1`` rows pad), or ``[max_boxes, 6]`` with an is-crowd
@@ -15,6 +16,12 @@ same seed a dataset draws what the JAX dataset draws from the global ``random`` 
 
 :class:`COCOPoseEstimationDataset` yields ``(image [3, H, W] float32, targets
 [max_poses, 5 + 3J])``.
+
+The classification datasets (:class:`ImageFolderDataset`, :class:`CIFAR10Dataset`,
+:class:`CIFAR100Dataset`, :class:`MNISTDataset`) yield ``(image [C, H, W] float32, int32
+label)``: the JAX sample, its image CHW. They ship float32, not uint8: CIFAR's images are
+normalized by its mean and std, and the others divide by 255.0, which the trainer's uint8
+standardize (``x * float32(1/255)``) would miss in the last bit of some pixels.
 
 Image files are read through PIL, imported where a file is read, so that the module
 imports without it.
@@ -396,3 +403,144 @@ class COCOPoseEstimationDataset:
         sample = self.transforms(sample, self.rng)
         image = np.asarray(sample.image, np.float32)
         return np.ascontiguousarray(image.transpose(2, 0, 1)), sample.to_padded_targets(self.max_poses)
+
+
+class ImageFolderDataset:
+    """An ImageNet-style ``root/<class>/<image>`` folder: classes in sorted order, their
+    images (``.jpg .jpeg .png .bmp .webp``) in sorted order. A sample is the image read by
+    PIL, resized to ``image_size`` (PIL bilinear), / 255.0, then ``transforms`` on the HWC
+    float32 image, as in the JAX dataset."""
+
+    def __init__(self, root: str, image_size: Tuple[int, int] = (224, 224), transforms=None):
+        self.root = root
+        self.image_size = tuple(image_size)
+        self.transforms = transforms
+        self.classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+        self.samples: List[Tuple[str, int]] = []
+        exts = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+        for ci, cls in enumerate(self.classes):
+            for fname in sorted(os.listdir(os.path.join(root, cls))):
+                if fname.lower().endswith(exts):
+                    self.samples.append((os.path.join(root, cls, fname), ci))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i):
+        path, label = self.samples[i]
+        pil = _pil_image()
+        with pil.open(path) as im:
+            im = im.convert("RGB").resize((self.image_size[1], self.image_size[0]), pil.BILINEAR)
+            img = np.asarray(im, dtype=np.float32) / 255.0
+        if self.transforms:
+            img = self.transforms(img)
+        return np.ascontiguousarray(np.asarray(img, np.float32).transpose(2, 0, 1)), np.int32(label)
+
+
+_CIFAR10_MEAN = np.asarray([0.4914, 0.4822, 0.4465], np.float32)
+_CIFAR10_STD = np.asarray([0.2470, 0.2435, 0.2616], np.float32)
+_CIFAR100_MEAN = np.asarray([0.5071, 0.4865, 0.4409], np.float32)
+_CIFAR100_STD = np.asarray([0.2673, 0.2564, 0.2762], np.float32)
+
+
+class _CIFARBase:
+    """The CIFAR python-pickle batches. ``train=True`` applies the train augmentations,
+    a 32x32 crop of the image zero-padded by 4 and a horizontal flip at 0.5, both drawn
+    from the dataset's ``np.random.RandomState`` (seeded with ``seed``, reseeded by each
+    loader worker); both splits normalize by the dataset's mean and std."""
+
+    mean = _CIFAR10_MEAN
+    std = _CIFAR10_STD
+
+    def __init__(self, root: str, train: bool = True, seed: int = 0):
+        import pickle
+
+        self.train = train
+        images, labels = [], []
+        for fname in self._batch_files(train):
+            with open(os.path.join(root, fname), "rb") as f:
+                d = pickle.load(f, encoding="bytes")
+            data = d[b"data"] if b"data" in d else d["data"]
+            lab = d.get(b"labels") or d.get(b"fine_labels") or d.get("labels") or d.get("fine_labels")
+            images.append(np.asarray(data, np.uint8).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
+            labels.append(np.asarray(lab, np.int32))
+        self.images = np.concatenate(images)
+        self.labels = np.concatenate(labels)
+        self.rng = np.random.RandomState(seed)
+
+    def _batch_files(self, train: bool) -> List[str]:
+        raise NotImplementedError
+
+    def reseed(self, seed: int) -> None:
+        """Seed the augmentations' generator (a DataLoader worker calls it with its own seed)."""
+        self.rng.seed(seed % 2**32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        img = self.images[i].astype(np.float32) / 255.0
+        if self.train:
+            padded = np.pad(img, ((4, 4), (4, 4), (0, 0)), mode="constant")
+            y, x = self.rng.randint(0, 9, size=2)
+            img = padded[y : y + 32, x : x + 32]
+            if self.rng.rand() < 0.5:
+                img = img[:, ::-1]
+        img = (img - self.mean) / self.std
+        return np.ascontiguousarray(img.transpose(2, 0, 1)), self.labels[i]
+
+
+class CIFAR10Dataset(_CIFARBase):
+    """CIFAR-10 from ``root/cifar-10-batches-py`` (or ``root`` itself)."""
+
+    mean, std = _CIFAR10_MEAN, _CIFAR10_STD
+
+    def __init__(self, root: str, train: bool = True, seed: int = 0):
+        sub = os.path.join(root, "cifar-10-batches-py")
+        super().__init__(sub if os.path.isdir(sub) else root, train, seed)
+
+    def _batch_files(self, train: bool) -> List[str]:
+        return [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+
+
+class CIFAR100Dataset(_CIFARBase):
+    """CIFAR-100 from ``root/cifar-100-python`` (or ``root`` itself), fine labels."""
+
+    mean, std = _CIFAR100_MEAN, _CIFAR100_STD
+
+    def __init__(self, root: str, train: bool = True, seed: int = 0):
+        sub = os.path.join(root, "cifar-100-python")
+        super().__init__(sub if os.path.isdir(sub) else root, train, seed)
+
+    def _batch_files(self, train: bool) -> List[str]:
+        return ["train"] if train else ["test"]
+
+
+class MNISTDataset:
+    """MNIST idx files (``train-images-idx3-ubyte[.gz]`` and the labels; ``t10k-*`` for
+    ``train=False``) -> ``(image [1, 28, 28] float32 in [0, 1], int label)``."""
+
+    def __init__(self, root: str, train: bool = True):
+        import gzip
+
+        prefix = "train" if train else "t10k"
+
+        def read_idx(name):
+            for suffix in ("", ".gz"):
+                path = os.path.join(root, name + suffix)
+                if os.path.exists(path):
+                    with (gzip.open if suffix else open)(path, "rb") as f:
+                        data = f.read()
+                    ndim = data[3]
+                    dims = [int.from_bytes(data[4 + 4 * i : 8 + 4 * i], "big") for i in range(ndim)]
+                    return np.frombuffer(data, np.uint8, offset=4 + 4 * ndim).reshape(dims)
+            raise FileNotFoundError(f"MNIST file {name}[.gz] not found under {root}")
+
+        self.images = read_idx(f"{prefix}-images-idx3-ubyte")
+        self.labels = read_idx(f"{prefix}-labels-idx1-ubyte")
+
+    def __len__(self):
+        return len(self.labels)
+
+    def __getitem__(self, i):
+        return self.images[i][None].astype(np.float32) / 255.0, int(self.labels[i])

@@ -9,8 +9,10 @@ Where the JAX module multiplies by one-hot matrices to keep the TPU's matrix uni
 busy, the port gathers (``torch.gather`` / ``scatter_``). Each of those products
 has a single non-zero term, so the gather gives the same bits. Top-k selections
 keep the JAX tie order, the lowest index first: a stable sort, since
-``torch.topk`` promises no order among equal values on CUDA. The assigners run
-under ``torch.no_grad()`` where the JAX module stops gradients.
+``torch.topk`` promises no order among equal values on CUDA. The TAL alignment
+metric has its subnormals flushed to 0, as XLA's arithmetic leaves them
+(:func:`flush_subnormals`). The assigners run under ``torch.no_grad()`` where the
+JAX module stops gradients.
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ def check_points_inside_bboxes(points: torch.Tensor, bboxes: torch.Tensor, eps: 
     xmin, ymin, xmax, ymax = (bboxes[..., i : i + 1] for i in range(4))  # each [B, n, 1]
     nearest = torch.minimum(torch.minimum(x - xmin, y - ymin), torch.minimum(xmax - x, ymax - y))
     return (nearest > eps).to(bboxes.dtype)
+
+
+def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
+    """Subnormal values to 0, as the JAX reference's arithmetic leaves them (XLA flushes
+    subnormals on the CPU and the TPU; PyTorch keeps them). A TAL alignment metric
+    ``score * IoU^6`` falls there for anchors whose box barely overlaps the gt, and a
+    subnormal would outrank the zeros that JAX's top-k orders by index."""
+    return torch.where(t.abs() < torch.finfo(t.dtype).tiny, torch.zeros_like(t), t)
 
 
 def _sorted_indices(vals: torch.Tensor, descending: bool) -> torch.Tensor:
@@ -109,7 +119,7 @@ class TaskAlignedAssigner:
         # each gt's class score at every anchor
         bbox_cls_scores = torch.gather(pred_scores.transpose(1, 2), 1, gt_labels[..., None].expand(-1, -1, ious.shape[-1]))
 
-        alignment_metrics = bbox_cls_scores.pow(self.alpha) * ious.pow(self.beta)
+        alignment_metrics = flush_subnormals(bbox_cls_scores.pow(self.alpha) * ious.pow(self.beta))
         is_in_gts = check_points_inside_bboxes(anchor_points, gt_bboxes)
         is_in_topk = gather_topk_anchors(alignment_metrics * is_in_gts, self.topk, topk_mask=pad)
         mask_positive = _resolve_multiple(is_in_topk * is_in_gts * pad, ious)

@@ -34,18 +34,11 @@ from super_gradients_tpu_torch.training.losses.ppyolo_loss import (
     batch_iou_similarity,
     check_points_inside_bboxes,
     df_loss,
+    flush_subnormals,
     focal_loss,
     gather_topk_anchors,
     giou_loss,
 )
-
-
-def flush_subnormals(t: torch.Tensor) -> torch.Tensor:
-    """Subnormal values to 0, as the JAX reference's arithmetic leaves them (XLA flushes
-    subnormals on the CPU and the TPU; PyTorch keeps them). The alignment metric
-    ``score * (IoU * OKS)^6`` falls there for anchors far from a person, and a subnormal
-    would outrank the zeros that JAX's top-k orders by index."""
-    return torch.where(t.abs() < torch.finfo(t.dtype).tiny, torch.zeros_like(t), t)
 
 
 def batch_pose_oks(gt_kpts: torch.Tensor, pred_kpts: torch.Tensor, gt_bboxes: torch.Tensor, sigmas: torch.Tensor,

@@ -1,9 +1,14 @@
 """Metrics of the port (counterpart of ``super_gradients_tpu/training/metrics/__init__.py``;
-the detection and pose metrics so far)."""
+the classification, detection and pose metrics so far)."""
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import METRICS
 from super_gradients_tpu_torch.training.metrics.base import Metric, MetricCollection, to_host  # noqa: F401
+from super_gradients_tpu_torch.training.metrics.classification import (  # noqa: F401
+    Accuracy,
+    Top5,
+    ToyTestClassificationMetric,
+)
 from super_gradients_tpu_torch.training.metrics.detection import (  # noqa: F401
     DetectionMetrics,
     DetectionMetrics_050,
@@ -16,7 +21,6 @@ from super_gradients_tpu_torch.training.metrics.pose_estimation import PoseEstim
 _BREADTH = "ROADMAP.md queue 1, 'Breadth'"
 # registered in the JAX package, not here yet
 NOT_PORTED = {
-    **dict.fromkeys(("Accuracy", "Top5", "ToyTestClassificationMetric"), _BREADTH + " (classification)"),
     **dict.fromkeys(("Dice", "IoU", "PixelAccuracy", "BinaryDice", "BinaryIOU", "BinaryIoU"), _BREADTH + " (segmentation)"),
     **dict.fromkeys(("DeltaMetric", "DepthMAE", "DepthMSE", "DepthRMSE"), _BREADTH + " (depth)"),
 }

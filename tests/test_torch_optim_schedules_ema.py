@@ -248,7 +248,7 @@ def _model_stub():
     (dict(sg_logger="dagshub_sg_logger"), None, NotImplementedError),
     (dict(sg_logger="deci_platform_sg_logger"), None, NotImplementedError),
     (dict(sg_logger_params={"monitor_system": True}), None, NotImplementedError),
-    (dict(train_metrics_list=["Accuracy"]), None, KeyError),
+    (dict(train_metrics_list=["PixelAccuracy"]), None, KeyError),
     (dict(valid_metrics_list=[{"IoU": {}}]), None, KeyError),
     (dict(phase_callbacks=["SegmentationVisualizationCallback"]), None, KeyError),
     (dict(phase_callbacks=[{"YoloXTrainingStageSwitchCallback": {}}]), None, KeyError),

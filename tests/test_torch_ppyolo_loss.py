@@ -13,7 +13,9 @@ The tie fixtures pin the JAX tie order, the lowest index first: 16 anchors of on
 gt with bit-equal alignment metrics (TAL keeps 13 of them), duplicate gts with
 different classes (the max-IoU and the assignment argmax take the first), and a
 gt centred on a grid corner, where 8 anchors are equidistant at the edge of
-ATSS's nearest 9.
+ATSS's nearest 9. The subnormal fixture gives 13 anchors of a gt alignment metrics
+near 1e-42, which XLA flushes to 0: the TAL labels match JAX's only with the port's
+flush.
 """
 
 from collections import namedtuple
@@ -103,8 +105,31 @@ def _equidistant_case():
     return cls_logits, reg, targets
 
 
+def _subnormal_case():
+    """A 32x32 gt over 16 stride-8 anchors: 3 of them predict it exactly, the other 13
+    predict boxes of ~0.02 px a side around their own centre. Those 13 have IoUs near
+    1e-7 and alignment metrics ``score * IoU^6`` near 1e-42, below fp32's smallest
+    normal: XLA flushes them to 0, so JAX's top-13 fills up with zero metrics in index
+    order (anchors outside the gt), and only the 3 good anchors are positive."""
+    cls_logits, reg, targets = _random_case(9)
+    targets[0, :3] = -1.0
+    targets[0, 0] = [1, 16.0, 16.0, 48.0, 48.0]
+    tiny = np.full(REG_MAX + 1, -1e4, np.float32)
+    tiny[:2] = [0.0, -7.4]  # expectation ~6e-4 of a stride: 0.005 px at stride 8
+    inside = [a for a in range(COUNTS[0]) if 16 < POINTS[a, 0] * 8 < 48 and 16 < POINTS[a, 1] * 8 < 48]
+    for j, a in enumerate(inside):
+        x, y = POINTS[a] * 8
+        if j in (5, 6, 9):
+            ltrb = ((x - 16) / 8, (y - 16) / 8, (48 - x) / 8, (48 - y) / 8)
+            reg[0, a] = np.concatenate([_two_hot_logits(d) for d in ltrb])
+        else:
+            reg[0, a] = np.tile(tiny, 4)
+        cls_logits[0, a, :] = 1.0
+    return cls_logits, reg, targets
+
+
 CASES = {"random": lambda: _random_case(0), "crowd": lambda: _random_case(1, crowd=True),
-         "ties": _tie_case, "equidistant": _equidistant_case}
+         "ties": _tie_case, "equidistant": _equidistant_case, "subnormal": _subnormal_case}
 
 
 def _jax_outputs(cls_logits, reg):
@@ -199,6 +224,33 @@ def test_tal_tie_picks_lowest_anchors_and_first_gt():
     assert [a for a in inside if labels[a] == 2] == inside[:13]
     assert all(labels[a] == C for a in inside[13:])
     assert (got.gt_index[0].numpy()[inside[:13]] == 0).all()
+
+
+def test_subnormal_case_reaches_subnormal_metrics():
+    """The fixture is not vacuous: before the flush, 13 stride-8 anchors of the gt have
+    subnormal alignment metrics, and after it only the 3 good ones of that level are
+    positive, as in JAX (``test_assigner_matches_jax[tal-subnormal]`` holds every label)."""
+    cls_logits, reg, targets = _subnormal_case()
+    loss = ppyolo_loss.PPYoloELoss(num_classes=C)
+    captured = []
+    original = ppyolo_loss.flush_subnormals
+
+    def spy(t):
+        captured.append(t.clone())
+        return original(t)
+
+    ppyolo_loss.flush_subnormals = spy
+    try:
+        got = loss.assign(_port_outputs(torch.from_numpy(cls_logits), torch.from_numpy(reg)), torch.from_numpy(targets))
+    finally:
+        ppyolo_loss.flush_subnormals = original
+    (metrics,) = captured
+    inside = [a for a in range(COUNTS[0]) if 16 < POINTS[a, 0] * 8 < 48 and 16 < POINTS[a, 1] * 8 < 48]
+    row = metrics[0, 0, inside]
+    tiny = torch.finfo(torch.float32).tiny
+    assert int(((row > 0) & (row < tiny)).sum()) == 13 and int((row >= tiny).sum()) == 3
+    positive = ((got.labels[0] != C) & (got.gt_index[0] == 0))[: COUNTS[0]]  # the stride-8 level
+    assert positive.nonzero()[:, 0].tolist() == [inside[j] for j in (5, 6, 9)]
 
 
 def test_atss_equidistant_tie_keeps_lowest_indices():

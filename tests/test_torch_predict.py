@@ -232,8 +232,9 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
-    surface (the pose modules included) imports, detection and pose predict take the
-    no-cv2 letterbox, reading an image or a YAML recipe raises an ImportError that names
+    surface (the pose and classification modules included) imports, detection, pose and
+    classification predict take the no-cv2 resizes, reading an image or a YAML recipe raises
+    an ImportError that names
     PIL or PyYAML, and, once PIL is back, a COCO-format dataset of PNGs runs one sample
     through the YOLO-NAS train chain (cv2 still blocked: the numpy / torch stand-ins) and
     a person-keypoints one through the pose train chain."""
@@ -268,6 +269,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.training.losses import yolo_nas_pose_loss
         from super_gradients_tpu_torch.training.metrics import pose_estimation
         from super_gradients_tpu_torch.training.transforms import keypoints
+        from super_gradients_tpu_torch.models.classification import resnet
+        from super_gradients_tpu_torch.training.losses import classification_losses
+        from super_gradients_tpu_torch.training.metrics import classification
+        from super_gradients_tpu_torch.training.transforms import classification as classification_transforms
         assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
@@ -280,6 +285,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         pose = models.get("yolo_nas_pose_n", image_size=64, device="cpu")
         poses = pose.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], conf=0.01)
         assert len(poses[0]) > 0 and poses[0].poses.shape[1:] == (17, 3) and np.isfinite(poses[0].poses).all()
+        classifier = models.get("resnet18", num_classes=10, arch_params={{"width_mult": 0.25}}, device="cpu")
+        labels = classifier.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)] * 2, batch_size=4)
+        assert len(labels) == 2 and labels[0].labels.shape == (5,) and np.isfinite(labels[0].confidence).all()
         try:
             datasets.load_image({str(tmp_path / "x.jpg")!r})
         except ImportError as e:

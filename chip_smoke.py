@@ -111,7 +111,19 @@ result) without CUDA or without the port's sources next to it. Phases:
    on the JAX package's class-separable CIFAR test data with its overrides, fp32 with TF32
    off and cuDNN deterministic, from model seeds 0-5 (the best Accuracy of the six >= 0.90),
    ``evaluate_checkpoint`` of the seed-0 run within 1e-6 of a direct ``Trainer.evaluate``
-   with a planted fault beyond it, and ``resume_experiment`` taking no step.
+   with a planted fault beyond it, and ``resume_experiment`` taking no step;
+15. segmentation at Seg50's 512x1024, 19 classes, launching no kernel (K1 must count 0 here):
+   for PP-LiteSeg-T and STDC1-Seg, seed 0, (a) fp32 ``predict()`` (TF32 off) of four seeded
+   1024x2048 images and a PIL image on the card and on the CPU, class maps agreeing on >= 99.9%
+   of the pixels, logits within twice the CPU's distance to fp64; (b) that request's
+   ``predict()`` latency and its host preprocessing alone, the fp32 forward at b8 and b16
+   (ms, img/s, idle share); (c) the bf16 train step by part at b8 (PP-LiteSeg-T +
+   ``DiceCEEdgeLoss``) and b16 (STDC1-Seg + ``STDCLoss``) with idle share and peak memory, and
+   OHEM's sort alone; (d) ``train_from_recipe`` of ``cityscapes_pplite_seg50`` and
+   ``cityscapes_stdc_base`` (bf16, 2 epochs, 8 workers) on a Cityscapes-layout tree of 16 + 8
+   1024x2048 PNGs written by ``tools/cityscapes_synthetic.py``: every loss finite, every
+   parameter changed, ``evaluate_checkpoint`` within 1e-6 of a direct ``Trainer.evaluate`` with
+   a planted fault beyond it, ``resume_experiment`` taking no step, the bytes of a batch.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -2113,6 +2125,257 @@ def phase_classification_recipe(torch, np, root):
     torch.cuda.empty_cache()
 
 
+SEG_MODELS = (("pp_lite_t_seg50", "DiceCEEdgeLoss", 8), ("stdc1_seg50", "STDCLoss", 16))  # model, loss, step batch
+SEG_AGREEMENT = 0.999  # least share of pixels whose class the card and the CPU agree on in phase 15(a)
+SEG_RECIPES = ("cityscapes_pplite_seg50", "cityscapes_stdc_base")
+
+
+def seg_request(np, seed):
+    """Four 1024x2048 uint8 images (Cityscapes' size) from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, 256, (1024, 2048, 3), dtype=np.uint8) for _ in range(4)]
+
+
+def phase_segmentation(torch, np, nms_exact, root):
+    """Segmentation at Seg50's size, 19 classes: (a) fp32 predict GPU vs CPU for PP-LiteSeg-T
+    and STDC1-Seg, (b) predict latency and the fp32 forward's throughput, (c) the bf16 train
+    step by part, (d) train_from_recipe of the two Cityscapes recipes on a Cityscapes-layout
+    tree written here. Launches no kernel (K1 must count 0)."""
+    launches_before = nms_exact.exact_nms_keep.launches
+    t_phase = time.perf_counter()
+    for name, loss, batch in SEG_MODELS:
+        phase_segmentation_predict(torch, np, name)
+        print(f"[15a-b] {name} seconds {time.perf_counter() - t_phase:.1f}")
+        phase_segmentation_step(torch, np, name, loss, batch)
+        print(f"[15c] {name} seconds {time.perf_counter() - t_phase:.1f}")
+    phase_segmentation_recipes(torch, np, root)
+    launched = nms_exact.exact_nms_keep.launches - launches_before
+    check(launched == 0, f"phase 15 launched K1 {launched} times; segmentation has no NMS")
+    print(f"[15] phase seconds {time.perf_counter() - t_phase:.1f}; K1 launches in phase 15: {launched}")
+
+
+def phase_segmentation_predict(torch, np, name):
+    """(a) fp32 predict (TF32 off) of four 1024x2048 images and a PIL image on the card and on
+    the CPU: class maps agree on >= SEG_AGREEMENT of the pixels; the card's logits (first two
+    images) within twice the CPU's distance to an fp64 CPU run. (b) predict() latency and
+    its preprocessing alone, and the fp32 forward at b8 / b16."""
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models.sg_model import SegmentationModel
+
+    model = models.get(name, seed=0, device="cuda")
+    cpu_model = models.get(name, seed=0, device="cpu")
+    check(isinstance(model, SegmentationModel) and model.num_classes == 19, f"{name} is not a 19-class segmenter")
+    images = seg_request(np, 31)
+    pil_image = Image.fromarray(seg_request(np, 32)[0])
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = list(model.predict(images)) + list(model.predict(pil_image))
+        _, batches, _ = model._prep_host_batches(images[:2], 2)
+        x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            g_logits = model._deploy_net(False, False)(x.cuda()).double().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    cpu = list(cpu_model.predict(images)) + list(cpu_model.predict(pil_image))
+    with torch.inference_mode():
+        c_logits = cpu_model.net(x).double()
+        r_logits = copy.deepcopy(cpu_model.net).double()(x.double())
+    agree = [float((g.segmentation_map == c.segmentation_map).mean()) for g, c in zip(gpu, cpu)]
+    e_gpu, e_cpu = float((g_logits - r_logits).abs().max()), float((c_logits - r_logits).abs().max())
+    top2 = r_logits.topk(2, dim=1).values
+    print(f"[15a] {name} 19 classes at 512x1024, fp32 predict GPU vs CPU (TF32 off), four 1024x2048 images + a PIL "
+          f"image: maps {[g.segmentation_map.shape for g in gpu][0]} {gpu[0].segmentation_map.dtype}, pixels agreeing "
+          f"{[round(a, 6) for a in agree]} (limit {SEG_AGREEMENT}); classes used {len(np.unique(gpu[0].segmentation_map))}; "
+          f"logits |GPU - fp64| max {e_gpu:.3e}, |CPU - fp64| max {e_cpu:.3e} (|logit| max "
+          f"{float(r_logits.abs().max()):.2f}, top-2 gap median {float((top2[:, 0] - top2[:, 1]).median()):.3f})")
+    check(len(gpu) == 5 and all(g.segmentation_map.shape == (1024, 2048) for g in gpu), "segmentation maps' shape")
+    check(min(agree) >= SEG_AGREEMENT, f"{name}: GPU and CPU maps agree on {agree} of the pixels")
+    check(e_gpu <= 2 * e_cpu + 1e-6 * float(r_logits.abs().max()), f"{name}: GPU logits {e_gpu} vs CPU {e_cpu} from fp64")
+    del cpu_model, cpu, c_logits, r_logits, g_logits
+
+    tf32 = f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32}"
+    model.predict(images)
+    request_ms, prep_ms = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        model.predict(images)
+        request_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        model._prep_host_batches(images, 4, pad_last=True)
+        prep_ms.append(1e3 * (time.perf_counter() - t0))
+    print(f"[15b] {name} predict() of four 1024x2048 images (one batch of 4): median {np.median(request_ms):.2f} ms "
+          f"(host clock, 10 runs; {tf32}); host preprocessing alone median {np.median(prep_ms):.2f} ms")
+    net = model._deploy_net(False, False)
+    for b in (8, 16):
+        batch = torch.randn((b, 3, 512, 1024), generator=torch.Generator().manual_seed(b)).cuda()
+        batch = batch.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            call = lambda: net(batch)  # noqa: E731
+            ms = cuda_ms(call, iters=10)
+            events, wall_ms = profiled(torch, call, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in events) / 1e3 / 5
+        print(f"[15b] {name} fp32 forward b{b} at 512x1024 ({tf32}, channels_last): {ms:.2f} ms a batch (CUDA events), "
+              f"{b * 1e3 / ms:.1f} img/s; profiled: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        del batch, events
+    del model, net
+    torch.cuda.empty_cache()
+
+
+def phase_segmentation_step(torch, np, name, loss_name, b):
+    """(c) The bf16 train step at 512x1024 by part (the Cityscapes recipes' SGD, momentum 0.9,
+    weight decay 5e-4 off bias and BN, exp EMA), with its idle share and peak memory; and the
+    OHEM sort of one head's b x 512 x 1024 pixel losses alone."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training import Trainer
+
+    model = models.get(name, seed=0, device="cuda")
+    tp = dict(loss=loss_name, criterion_params={"num_classes": 19, "ignore_index": 255}, optimizer="SGD",
+              optimizer_params={"momentum": 0.9, "weight_decay": 5e-4}, zero_weight_decay_on_bias_and_bn=True,
+              initial_lr=0.01, lr_mode="PolyLRScheduler", max_epochs=2, ema=True,
+              ema_params={"decay": 0.9999, "beta": 15, "decay_type": "exp"}, mixed_precision=True)
+    step = Trainer("chip_smoke_seg_timing").prepare(model, tp, steps_per_epoch=100)
+    gen = torch.Generator().manual_seed(b)
+    images = torch.rand((b, 3, 512, 1024), generator=gen).cuda().contiguous(memory_format=torch.channels_last)
+    targets = torch.randint(0, 19, (b, 512, 1024), generator=gen, dtype=torch.int32)
+    targets[torch.rand((b, 512, 1024), generator=gen) < 0.1] = 255
+    targets = targets.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(events=None):
+        marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+        marks[0]()
+        out = step.forward(images)
+        marks[1]()
+        loss, _ = step.loss(out, targets)
+        marks[2]()
+        step.backward(loss)
+        marks[3]()
+        step.update()
+        marks[4]()
+        return loss
+
+    for _ in range(3):
+        run()
+    iters = 10
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+    for ev in events:
+        run(ev)
+    torch.cuda.synchronize()
+    parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+    step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+    prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+    busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+    loss = run()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), f"{name} b{b} bf16 train loss not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pixel_losses = torch.rand(b * 512 * 1024, generator=gen).cuda()
+    sort_ms = cuda_ms(lambda: torch.sort(pixel_losses, descending=True), iters=10)
+    print(f"[15c] {name} + {loss_name} bf16 train step b{b} at 512x1024: {step_ms:.2f} ms/step, "
+          f"{b * 1e3 / step_ms:.1f} img/s (CUDA events); forward {parts[0]:.2f}, loss {parts[1]:.2f}, backward "
+          f"{parts[2]:.2f}, optimizer + EMA {parts[3]:.2f} ms; profiled (device activity only): wall {wall_ms:.2f} "
+          f"ms/step, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak memory {peak:.2f} GiB; "
+          f"OHEM's descending sort of {b * 512 * 1024} pixel losses alone {sort_ms:.3f} ms (one per OHEM head)")
+    del step, images, targets, loss, prof_events, model, pixel_losses
+    torch.cuda.empty_cache()
+
+
+def phase_segmentation_recipes(torch, np, root):
+    """(d) train_from_recipe of cityscapes_pplite_seg50 and cityscapes_stdc_base (their own
+    batches, 8 and 16, 8 workers, bf16, 2 epochs) on a Cityscapes-layout tree of 16 train and
+    8 val 1024x2048 PNGs over two cities written here; evaluate_checkpoint within 1e-6 of a
+    direct Trainer.evaluate (a planted fault, a fresh model's BN statistics, beyond it);
+    resume_experiment takes no step."""
+    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer, dataloaders
+    from tools.cityscapes_synthetic import write_cityscapes_tree
+
+    data_root, ckpt_root = os.path.join(root, "cityscapes"), os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    write_cityscapes_tree(data_root, train=16, val=8, height=1024, width=2048, seed=0)
+    print(f"[15d] Cityscapes-layout tree (16 train + 8 val 1024x2048 PNGs, 2 cities, every trainId and void) written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    workers = min(8, os.cpu_count())
+    for recipe in SEG_RECIPES:
+        cuts = ["epochs=2", f"num_workers={workers}", f"ckpt_root_dir={ckpt_root}", "training_hyperparams.mixed_precision=True",
+                f"dataset_params.train_dataset_params.root={data_root}",
+                f"dataset_params.val_dataset_params.root={data_root}",
+                "training_hyperparams.sg_logger_params.tensorboard=False"]
+        cfg = config.load_recipe(recipe, overrides=cuts)
+        timed = {}
+        original_get = dataloaders.get
+
+        def timed_get(name=None, **kw):
+            loader = original_get(name, **kw)
+            if name == cfg["train_dataloader"]:
+                loader = timed.setdefault("train", TimedLoader(loader, profile_epoch=1))
+            return loader
+
+        initial = {k: v.detach().clone() for k, v in models.get(cfg["architecture"], num_classes=19).net.named_parameters()}
+        dataloaders.get = timed_get
+        t0 = time.perf_counter()
+        try:
+            _, trainer = train_from_recipe.main([f"--config-name={recipe}", *cuts])
+        finally:
+            dataloaders.get = original_get
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        live = dict(trainer.train_state.net.named_parameters())
+        unchanged = [k for k, v in initial.items() if torch.equal(v, live[k])]
+        history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+        loader = timed["train"]
+        print(f"[15d] train_from_recipe {recipe} ({cfg['architecture']}, {cfg['training_hyperparams']['loss']}, "
+              f"b{loader.batch_size}, bf16, {workers} workers, cuts {cuts[:2]}): {trainer.train_state.step} steps in "
+              f"{seconds:.1f} s; losses {history}; validation {json.dumps(valid)}; parameters unchanged "
+              f"{len(unchanged)} of {len(initial)}; {loader.batch_bytes} bytes a batch to the card (float32 images + "
+              f"int32 masks); epoch 2: loader waits {[round(w, 3) for w in loader.epochs[1][1]]} s, device busy "
+              f"{loader.busy_ms:.2f} of {loader.window_ms:.2f} ms")
+        check(len(history) == 2 and all(np.isfinite(history)), f"{recipe} train losses {history}")
+        check(len(valid) == 2 and all(set(v) == {"PixelAccuracy", "IoU", "Loss"} and np.isfinite(list(v.values())).all()
+                                      for v in valid), f"{recipe} validation results {valid}")
+        check(not unchanged, f"{recipe}: parameters the training left unchanged: {unchanged[:5]}")
+
+        evaluated = Trainer.evaluate_checkpoint(cfg["experiment_name"], ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
+        best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
+        best = torch.load(best_path, map_location="cpu", weights_only=True)
+        model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], checkpoint_path=best_path)
+        val_loader = Trainer._loader_from_cfg(cfg, "val")
+        direct = Trainer("seg_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
+
+        def differences(a, b):  # |a - b| of each metric, of Loss relative to b
+            return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
+
+        diffs = differences(evaluated, direct)
+        # planted fault: the checkpoint's parameters with a fresh model's BN statistics (the live
+        # weights would not do: after one step the EMA equals them, its first decay being 0)
+        fresh = models.get(cfg["architecture"], num_classes=cfg["num_classes"], seed=1)
+        with torch.no_grad():
+            for buf_name, buf in fresh.net.named_buffers():
+                model.net.get_buffer(buf_name).copy_(buf)
+        fault = differences(Trainer("seg_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
+                                                                                   cfg["training_hyperparams"]), direct)
+        close_loader(val_loader)
+        print(f"[15d] {recipe} evaluate_checkpoint(ckpt_best, epoch {best['epoch']}, fp32): {json.dumps(evaluated)}; "
+              f"|difference| to Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): "
+              f"{json.dumps(diffs)}, limit {RECIPE_EVAL_TOL}; planted fault (a fresh model's BN statistics): "
+              f"{json.dumps(fault)}")
+        check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"{recipe} evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
+        check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the {recipe} evaluate_checkpoint gate: {fault}")
+        step_before = trainer.train_state.step
+        _, resumed = Trainer.resume_experiment(cfg["experiment_name"], ckpt_root_dir=ckpt_root)
+        check(resumed.train_loss_history == [] and resumed.train_state.step == step_before,
+              f"resume_experiment of a finished {recipe} run took a step")
+        close_loader(loader.loader)
+        del trainer, resumed, model, best, initial, live, fresh
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -2157,6 +2420,8 @@ def main():
     max_err = max(max_err, pose_err)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as root:
         phase_classification(torch, np, nms_exact, root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as root:
+        phase_segmentation(torch, np, nms_exact, root)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

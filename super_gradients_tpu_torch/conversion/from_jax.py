@@ -1,11 +1,11 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
-``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, YOLO-NAS-POSE and
-the ResNet family).
+``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, YOLO-NAS-POSE, the
+ResNet family, STDC classification and the STDC and PP-LiteSeg segmentation models).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
 of those rules (``YOLO_NAS_RULES``, ``YOLO_NAS_POSE_RULES``, ``RESNET_RULES``,
-``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout transforms:
+``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout transforms:
 
 - conv kernel HWIO -> OIHW;
 - dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
@@ -72,6 +72,51 @@ YOLO_NAS_POSE_RULES: Rules = YOLO_NAS_RULES + (
 RESNET_RULES: Rules = (
     (r"shortcut_conv", "shortcut.0"),
     (r"shortcut_bn", "shortcut.1"),
+)
+
+
+
+def _stdc_backbone_rules(prefix: str) -> Rules:
+    """The STDC backbone's stages under ``prefix``: ``block_s{ratio}_{i}`` becomes
+    ``stages.block_s{ratio}.{i}`` (``§`` keeps the ``_s``), every conv-BN under ``seq``, and
+    the stride-2 block's depthwise conv and second conv ``conv_list.1.0`` / ``conv_list.1.1``."""
+    stages = prefix + "backbone.stages.block§s"
+    return (
+        (r"^backbone\.block_s(\d+)_0\.conv_list_1_dw\.(conv|bn)$", stages + r"\1.0.conv_list.1.0.seq.\2"),
+        (r"^backbone\.block_s(\d+)_0\.conv_list_1\.(conv|bn)$", stages + r"\1.0.conv_list.1.1.seq.\2"),
+        (r"^backbone\.block_s(\d+)_(\d+)\.conv_list_(\d+)\.(conv|bn)$", stages + r"\1.\2.conv_list.\3.seq.\4"),
+        (r"^backbone\.block_s(\d+)_(\d+)\.(conv|bn)$", stages + r"\1.\2.seq.\3"),
+    )
+
+
+# STDC classification: the backbone at the top level, then conv_last / fc / linear
+STDC_CLS_RULES: Rules = _stdc_backbone_rules("") + ((r"^conv_last\.(conv|bn)$", r"conv_last.seq.\1"),)
+
+# STDC segmentation: the context path under `cp`, each head `Sequential(SegmentationHead, upsample)`
+STDC_RULES: Rules = _stdc_backbone_rules("cp.") + (
+    (r"^(arm\d+)\.conv_first\.(conv|bn)$", r"cp.\1.conv_first.seq.\2"),
+    (r"^(arm\d+)\.attention_conv\.(conv|bn)$", r"cp.\1.attention_block.1.seq.\2"),
+    (r"^upsample(\d+)_conv\.(conv|bn)$", r"cp.upsample\1.1.seq.\2"),
+    (r"^context_embedding\.(conv|bn)$", r"cp.context_embedding.context_embedding.1.seq.\1"),
+    (r"^ffm\.pw_conv\.(conv|bn)$", r"ffm.pw_conv.seq.\1"),
+    (r"^ffm\.attention_conv1$", "ffm.attention_block.1.seq.conv"),
+    (r"^ffm\.attention_conv2$", "ffm.attention_block.2"),
+    (r"^(segmentation_head|aux_head_s16|aux_head_s32|detail_head8)\.conv\.(conv|bn)$", r"\1.0.seg_head.0.seq.\2"),
+    (r"^(segmentation_head|aux_head_s16|aux_head_s32|detail_head8)\.pred$", r"\1.0.seg_head.2"),
+)
+
+# PP-LiteSeg: the STDC backbone, SPPM and projections under `encoder`, the UAFMs under `decoder`
+PPLITESEG_RULES: Rules = _stdc_backbone_rules("encoder.") + (
+    (r"^context\.branch_(\d+)\.(conv|bn)$", r"encoder.context_module.branches.\1.1.seq.\2"),
+    (r"^context\.conv_out\.(conv|bn)$", r"encoder.context_module.conv_out.seq.\1"),
+    (r"^proj_(\d+)\.(conv|bn)$", r"encoder.proj_convs.\1.seq.\2"),
+    (r"^up_stage_(\d+)\.conv_atten_(\d)\.(conv|bn)$", r"decoder.up_stages.\1.conv_atten.\2.seq.\3"),
+    (r"^up_stage_(\d+)\.proj_skip\.(conv|bn)$", r"decoder.up_stages.\1.proj_skip.seq.\2"),
+    (r"^up_stage_(\d+)\.conv_out\.(conv|bn)$", r"decoder.up_stages.\1.conv_out.seq.\2"),
+    (r"^seg_head\.conv\.(conv|bn)$", r"seg_head.0.seg_head.0.seq.\1"),
+    (r"^seg_head\.pred$", "seg_head.0.seg_head.2"),
+    (r"^aux_head_(\d+)\.conv\.(conv|bn)$", r"aux_heads.\1.0.seg_head.0.seq.\2"),
+    (r"^aux_head_(\d+)\.pred$", r"aux_heads.\1.0.seg_head.2"),
 )
 
 

@@ -5,7 +5,8 @@ at the call), in the JAX package's colours, text and layout, and a
 :class:`PoseEstimationPrediction` its skeletons; :class:`ImagesPredictions` saves every
 image's drawing, :class:`VideoPredictions` writes them as a video. A
 :class:`ClassificationPrediction` holds the top-k labels and their probabilities; it has
-no drawing, as in the JAX package. Segmentation predictions come with their model family.
+no drawing, as in the JAX package. A :class:`SegmentationPrediction` holds a class map
+and draws it over its image, one palette colour a class.
 """
 
 from __future__ import annotations
@@ -73,6 +74,29 @@ class ClassificationPrediction:
     @property
     def prediction(self) -> int:
         return int(self.labels[0])
+
+
+@dataclasses.dataclass
+class SegmentationPrediction:
+    """Per-image segmentation result: a class id a pixel at the image's size."""
+
+    segmentation_map: np.ndarray  # [H, W] int class ids
+    class_names: Optional[List[str]] = None
+    image: Optional[np.ndarray] = None  # HWC RGB uint8
+
+    def draw(self, alpha: float = 0.5) -> np.ndarray:
+        """The image blended with the class colours, ``image * (1 - alpha) + colour * alpha``
+        truncated to uint8 (a black image where there is none)."""
+        overlay = np.zeros((*self.segmentation_map.shape, 3), dtype=np.uint8)
+        for cls in np.unique(self.segmentation_map):
+            overlay[self.segmentation_map == cls] = _PALETTE[int(cls) % len(_PALETTE)]
+        base = self.image if self.image is not None else np.zeros_like(overlay)
+        return (base * (1 - alpha) + overlay * alpha).astype(np.uint8)
+
+    def save(self, output_path: str, **kwargs) -> None:
+        from PIL import Image
+
+        Image.fromarray(self.draw(**kwargs)).save(output_path)
 
 
 @dataclasses.dataclass

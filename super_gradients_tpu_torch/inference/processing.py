@@ -1,19 +1,22 @@
 """Host-side image processing for predict (the subset of
 ``super_gradients_tpu/inference/processing.py`` that the YOLO-NAS and YOLO-NAS-POSE
-COCO processing and the ImageNet classification processing use).
+COCO processing, the ImageNet classification processing and the segmentation
+processing use).
 
 numpy in, numpy out, one image at a time. The letterbox resize is the JAX
 package's call, ``cv2.resize(..., INTER_LINEAR)``, wherever cv2 imports (cv2 is
 imported at the call, never with the module). Without cv2 it is
 :func:`resize_bilinear`, ``F.interpolate(mode="bilinear", align_corners=False,
 antialias=False)`` rounded back to uint8: the same half-pixel sampling, within one
-grey level of cv2 (whose fixed-point weights round differently).
+grey level of cv2 (whose fixed-point weights round differently). A segmentation map
+goes back to the image's size with ``cv2.resize(..., INTER_NEAREST)``, or without cv2
+with :func:`resize_nearest_torch`, the same floor rule.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,11 +29,14 @@ class ProcessingMetadata:
     pad_top: int = 0
     pad_left: int = 0
     original_hw: Tuple[int, int] = (0, 0)
+    pad_bottom: int = 0
+    pad_right: int = 0
 
 
 class Processing:
-    """preprocess(image) -> (image, metadata); postprocess_boxes / postprocess_keypoints
-    undo the geometry (keypoints ``[..., >=2]``: x, y first, any other column as is)."""
+    """preprocess(image) -> (image, metadata); postprocess_boxes / postprocess_keypoints /
+    postprocess_segmentation undo the geometry (keypoints ``[..., >=2]``: x, y first, any
+    other column as is)."""
 
     def preprocess_image(self, image: np.ndarray) -> Tuple[np.ndarray, ProcessingMetadata]:
         raise NotImplementedError
@@ -40,6 +46,9 @@ class Processing:
 
     def postprocess_keypoints(self, kpts: np.ndarray, meta: ProcessingMetadata) -> np.ndarray:
         return kpts
+
+    def postprocess_segmentation(self, seg_map: np.ndarray, meta: ProcessingMetadata) -> np.ndarray:
+        return seg_map
 
 
 def cv2_module():
@@ -67,6 +76,23 @@ def resize_bilinear(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     x = torch.from_numpy(np.ascontiguousarray(image)).permute(2, 0, 1)[None].float()
     y = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False, antialias=False)
     return y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def resize_nearest(seg: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """A class map to ``out_hw`` as uint8: ``cv2.resize(INTER_NEAREST)``, or
+    :func:`resize_nearest_torch` without cv2."""
+    seg = seg.astype(np.uint8)
+    cv2 = cv2_module()
+    if cv2 is None:
+        return resize_nearest_torch(seg, out_hw)
+    return cv2.resize(seg, dsize=(out_hw[1], out_hw[0]), interpolation=cv2.INTER_NEAREST)
+
+
+def resize_nearest_torch(seg: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """``F.interpolate(mode="nearest")`` of a 2-D map: each output pixel takes the source
+    pixel ``floor(i * in / out)``, cv2's ``INTER_NEAREST`` rule."""
+    x = torch.from_numpy(np.ascontiguousarray(seg))[None, None]
+    return F.interpolate(x, size=tuple(out_hw), mode="nearest")[0, 0].numpy()
 
 
 class DetectionLongestMaxSizeRescale(Processing):
@@ -213,6 +239,112 @@ class ClassificationResizeShortestCrop(Processing):
         return image[top : top + self.crop, left : left + self.crop], ProcessingMetadata(original_hw=(h, w))
 
 
+class SegmentationResizeWithPadding(Processing):
+    """Aspect-preserving resize (the new sides rounded) and centred padding to
+    ``output_shape``; the class map is cropped back and resized to the image's size."""
+
+    def __init__(self, output_shape: Sequence[int], pad_value: int = 0):
+        self.output_shape = tuple(output_shape)
+        self.pad_value = pad_value
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        th, tw = self.output_shape
+        scale = min(th / h, tw / w)
+        if scale != 1.0:
+            image = resize(image, (round(h * scale), round(w * scale)))
+        hh, ww = image.shape[:2]
+        top, left = (th - hh) // 2, (tw - ww) // 2
+        out = np.full((th, tw) + image.shape[2:], self.pad_value, dtype=image.dtype)
+        out[top : top + hh, left : left + ww] = image
+        return out, ProcessingMetadata(scale=scale, original_hw=(h, w), pad_top=top, pad_left=left,
+                                       pad_bottom=th - hh - top, pad_right=tw - ww - left)
+
+    def postprocess_segmentation(self, seg_map, meta):
+        h, w = seg_map.shape[:2]
+        seg = seg_map[meta.pad_top : h - meta.pad_bottom, meta.pad_left : w - meta.pad_right]
+        return resize_nearest(seg, meta.original_hw)
+
+
+class SegmentationRescale(Processing):
+    """Aspect-preserving rescale by ``scale_factor``, or so that the short side is
+    ``short_size``, or the long side ``long_size`` (the new sides truncated)."""
+
+    def __init__(self, scale_factor: Optional[float] = None, short_size: Optional[int] = None,
+                 long_size: Optional[int] = None):
+        self.scale_factor, self.short_size, self.long_size = scale_factor, short_size, long_size
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        if self.scale_factor is not None:
+            scale = float(self.scale_factor)
+        elif self.short_size is not None:
+            scale = self.short_size / min(h, w)
+        else:
+            scale = self.long_size / max(h, w)
+        out = resize(image, (int(scale * h), int(scale * w))) if scale != 1.0 else image
+        return out, ProcessingMetadata(scale=scale, original_hw=(h, w))
+
+    def postprocess_segmentation(self, seg_map, meta):
+        return resize_nearest(seg_map, meta.original_hw)
+
+
+class SegmentationResize(Processing):
+    """Resize to ``output_shape``, the aspect ratio not kept; the class map back to the
+    image's size. (The JAX zoo's ``_SegResize`` for non-square inputs does the same.)"""
+
+    def __init__(self, output_shape: Sequence[int]):
+        self.output_shape = tuple(output_shape)
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        return resize(image, self.output_shape), ProcessingMetadata(original_hw=(h, w))
+
+    def postprocess_segmentation(self, seg_map, meta):
+        return resize_nearest(seg_map, meta.original_hw)
+
+
+class SegmentationPadShortToCropSize(Processing):
+    """Centred padding up to ``crop_size`` where a side is shorter; cropped back after."""
+
+    def __init__(self, crop_size, fill_image=0):
+        self.crop_size = (crop_size, crop_size) if isinstance(crop_size, (int, float)) else tuple(crop_size)
+        self.fill_image = fill_image
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        th, tw = max(h, int(self.crop_size[0])), max(w, int(self.crop_size[1]))
+        top, left = (th - h) // 2, (tw - w) // 2
+        out = np.full((th, tw) + image.shape[2:], self.fill_image, dtype=image.dtype)
+        out[top : top + h, left : left + w] = image
+        return out, ProcessingMetadata(original_hw=(h, w), pad_top=top, pad_left=left, pad_bottom=th - h - top,
+                                       pad_right=tw - w - left)
+
+    def postprocess_segmentation(self, seg_map, meta):
+        h, w = seg_map.shape[:2]
+        return seg_map[meta.pad_top : h - meta.pad_bottom, meta.pad_left : w - meta.pad_right]
+
+
+class SegmentationPadToDivisible(Processing):
+    """Bottom-right padding to multiples of ``divisible_value``; cropped back after."""
+
+    def __init__(self, divisible_value: int, fill_image=0):
+        self.divisible_value = int(divisible_value)
+        self.fill_image = fill_image
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        d = self.divisible_value
+        th, tw = -(-h // d) * d, -(-w // d) * d
+        out = np.full((th, tw) + image.shape[2:], self.fill_image, dtype=image.dtype)
+        out[:h, :w] = image
+        return out, ProcessingMetadata(original_hw=(h, w), pad_bottom=th - h, pad_right=tw - w)
+
+    def postprocess_segmentation(self, seg_map, meta):
+        h, w = seg_map.shape[:2]
+        return seg_map[: h - meta.pad_bottom, : w - meta.pad_right]
+
+
 class ReverseImageChannels(Processing):
     """RGB <-> BGR."""
 
@@ -242,6 +374,11 @@ class ComposeProcessing(Processing):
         for p, m in reversed(metas):
             kpts = p.postprocess_keypoints(kpts, m)
         return kpts
+
+    def postprocess_segmentation(self, seg_map, metas):
+        for p, m in reversed(metas):
+            seg_map = p.postprocess_segmentation(seg_map, m)
+        return seg_map
 
 
 def default_yolo_nas_coco_processing(image_size: int = 640) -> ComposeProcessing:
@@ -314,4 +451,36 @@ def default_yolo_nas_pose_coco_processing_params() -> Dict[str, Any]:
         edge_links=COCO_POSE_DEFAULT_EDGE_LINKS,
         edge_colors=COCO_POSE_DEFAULT_EDGE_COLORS,
         keypoint_colors=COCO_POSE_DEFAULT_KEYPOINT_COLORS,
+    )
+
+
+def default_segmentation_processing(input_hw: Tuple[int, int]) -> ComposeProcessing:
+    """What ``models.get`` of a segmentation model predicts with: a resize to ``input_hw``
+    (:class:`ClassificationResize` when square, else :class:`SegmentationResize`), /255,
+    then the ImageNet mean and std."""
+    h, w = input_hw
+    return ComposeProcessing(
+        [
+            ClassificationResize(h) if h == w else SegmentationResize((h, w)),
+            StandardizeImage(255.0),
+            NormalizeImage(mean=IMAGENET_MEAN, std=IMAGENET_STD),
+        ]
+    )
+
+
+def default_cityscapes_processing_params(scale: float = 1.0) -> Dict[str, Any]:
+    """The published Cityscapes processing parameters: resize with padding to
+    ``scale * (1024, 2048)``, the ImageNet mean and std, then /255 (in this order, as the
+    JAX package composes them)."""
+    from super_gradients_tpu_torch.models.class_names import CITYSCAPES_CLASSES_LIST
+
+    return dict(
+        class_names=CITYSCAPES_CLASSES_LIST,
+        image_processor=ComposeProcessing(
+            [
+                SegmentationResizeWithPadding((int(1024 * scale), int(2048 * scale)), pad_value=0),
+                NormalizeImage(mean=IMAGENET_MEAN, std=IMAGENET_STD),
+                StandardizeImage(255.0),
+            ]
+        ),
     )

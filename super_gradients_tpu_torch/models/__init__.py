@@ -6,7 +6,8 @@ from super_gradients_tpu_torch.models.sg_model import (
     ClassificationModel,
     DetectionModel,
     PoseEstimationModel,
+    SegmentationModel,
     SgModel,
 )
 
-__all__ = ["get", "ClassificationModel", "DetectionModel", "PoseEstimationModel", "SgModel"]
+__all__ = ["get", "ClassificationModel", "DetectionModel", "PoseEstimationModel", "SegmentationModel", "SgModel"]

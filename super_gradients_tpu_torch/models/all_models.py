@@ -1,4 +1,5 @@
-"""Architecture registrations of the port (the ResNet, YOLO-NAS and YOLO-NAS-POSE rows of
+"""Architecture registrations of the port (the ResNet, STDC classification, YOLO-NAS,
+YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
 ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
@@ -8,10 +9,12 @@ import dataclasses
 from super_gradients_tpu_torch.common.registry import register_model
 from super_gradients_tpu_torch.inference.processing import (
     default_imagenet_processing,
+    default_segmentation_processing,
     default_yolo_nas_coco_processing,
 )
 from super_gradients_tpu_torch.models.classification.resnet import CifarResNet, ResNet
 from super_gradients_tpu_torch.models.class_names import (
+    CITYSCAPES_CLASSES_LIST,
     COCO_DETECTION_CLASSES_LIST,
     COCO_POSE_EDGE_LINKS,
     COCO_POSE_KEYPOINTS,
@@ -32,7 +35,15 @@ from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
     yolo_nas_pose_n_config,
     yolo_nas_pose_s_config,
 )
-from super_gradients_tpu_torch.models.sg_model import ClassificationModel, PoseEstimationModel
+from super_gradients_tpu_torch.models.segmentation.ppliteseg import PP_LITE_B_CFG, PP_LITE_T_CFG, PPLiteSeg
+from super_gradients_tpu_torch.models.segmentation.stdc import (
+    STDC1_CFG,
+    STDC2_CFG,
+    STDCClassification,
+    STDCSegCfg,
+    STDCSegmentation,
+)
+from super_gradients_tpu_torch.models.sg_model import ClassificationModel, PoseEstimationModel, SegmentationModel
 
 
 def _resnet_spec(num_blocks, block, num_classes=None, arch_params=None, **kw) -> ModelSpec:
@@ -77,6 +88,26 @@ def resnet18_cifar(num_classes=None, arch_params=None, **kw):
     nc = num_classes or 10
     return ModelSpec(net=CifarResNet(num_blocks=(2, 2, 2, 2), num_classes=nc, block="basic"), num_classes=nc,
                      input_hw=(32, 32), model_cls=ClassificationModel)
+
+
+def _stdc_cls_spec(backbone_cfg, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    """STDC classification at 224 with the ImageNet processing; ``arch_params`` gives
+    ``num_classes`` (1000 by default) and ``dropout`` (0.2)."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 1000)
+    net = STDCClassification(backbone_cfg, num_classes=nc, dropout=arch_params.get("dropout", 0.2))
+    return ModelSpec(net=net, num_classes=nc, input_hw=(224, 224), processing=default_imagenet_processing(crop=224),
+                     model_cls=ClassificationModel)
+
+
+@register_model("stdc1_classification")
+def stdc1_classification(**kw):
+    return _stdc_cls_spec(STDC1_CFG, **kw)
+
+
+@register_model("stdc2_classification")
+def stdc2_classification(**kw):
+    return _stdc_cls_spec(STDC2_CFG, **kw)
 
 
 _FUSED = {"none": False, "full": True}  # the JAX package's `fused` values that the port builds
@@ -159,3 +190,58 @@ def yolo_nas_pose_m(**kw):
 @register_model("yolo_nas_pose_l")
 def yolo_nas_pose_l(**kw):
     return _pose_spec(yolo_nas_pose_l_config, **kw)
+
+
+def _seg_spec(net, nc: int, input_hw, config) -> ModelSpec:
+    """A segmentation model at ``input_hw`` (Seg50's 512x1024 by default) with the JAX zoo's
+    processing; its BN statistics are calibrated at 128x128, the JAX zoo's ``init_hw``."""
+    input_hw = tuple(input_hw)
+    return ModelSpec(net=net, num_classes=nc, input_hw=input_hw, config=config,
+                     processing=default_segmentation_processing(input_hw),
+                     class_names=CITYSCAPES_CLASSES_LIST if nc == 19 else None, model_cls=SegmentationModel,
+                     init_hw=(128, 128))
+
+
+def _stdc_seg(backbone_cfg, num_classes=None, arch_params=None, input_hw=(512, 1024), **kw) -> ModelSpec:
+    """STDC segmentation; ``arch_params`` gives ``num_classes`` (19) and ``use_aux_heads``
+    (True: the aux and detail heads that ``STDCLoss`` trains)."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 19)
+    cfg = STDCSegCfg(backbone=backbone_cfg, num_classes=nc, use_aux_heads=arch_params.get("use_aux_heads", True))
+    return _seg_spec(STDCSegmentation(cfg), nc, input_hw, cfg)
+
+
+@register_model("stdc1_seg")
+@register_model("stdc1_seg50")
+@register_model("stdc1_seg75")
+def stdc1_seg(**kw):
+    return _stdc_seg(STDC1_CFG, **kw)
+
+
+@register_model("stdc2_seg")
+@register_model("stdc2_seg50")
+@register_model("stdc2_seg75")
+def stdc2_seg(**kw):
+    return _stdc_seg(STDC2_CFG, **kw)
+
+
+def _ppliteseg(base, num_classes=None, arch_params=None, input_hw=(512, 1024), **kw) -> ModelSpec:
+    """PP-LiteSeg; ``arch_params`` gives ``num_classes`` (19) and ``use_aux_heads`` (False)."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 19)
+    cfg = dataclasses.replace(base, num_classes=nc, use_aux_heads=arch_params.get("use_aux_heads", False))
+    return _seg_spec(PPLiteSeg(cfg), nc, input_hw, cfg)
+
+
+@register_model("pp_lite_t_seg")
+@register_model("pp_lite_t_seg50")
+@register_model("pp_lite_t_seg75")
+def pp_lite_t_seg(**kw):
+    return _ppliteseg(PP_LITE_T_CFG, **kw)
+
+
+@register_model("pp_lite_b_seg")
+@register_model("pp_lite_b_seg50")
+@register_model("pp_lite_b_seg75")
+def pp_lite_b_seg(**kw):
+    return _ppliteseg(PP_LITE_B_CFG, **kw)

@@ -1,4 +1,4 @@
-"""COCO class names and pose constants (public data; counterpart of the JAX package's lists)."""
+"""COCO and Cityscapes class names and pose constants (public data; counterpart of the JAX package's lists)."""
 
 COCO_DETECTION_CLASSES_LIST = [
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat",
@@ -12,6 +12,12 @@ COCO_DETECTION_CLASSES_LIST = [
     "mouse", "remote", "keyboard", "cell phone", "microwave", "oven", "toaster", "sink",
     "refrigerator", "book", "clock", "vase", "scissors", "teddy bear", "hair drier",
     "toothbrush",
+]
+
+CITYSCAPES_CLASSES_LIST = [
+    "road", "sidewalk", "building", "wall", "fence", "pole", "traffic light", "traffic sign",
+    "vegetation", "terrain", "sky", "person", "rider", "car", "truck", "bus", "train",
+    "motorcycle", "bicycle",
 ]
 
 # the 17 COCO keypoints, the skeleton's links and the per-joint OKS sigmas (pose estimation)

@@ -4,7 +4,8 @@
 Each registered architecture is a builder returning a :class:`ModelSpec`; ``get``
 initializes the network from a seeded ``torch.Generator`` on the CPU, moves it to
 the requested device and wraps it in the task model that the spec names
-(:class:`DetectionModel`, :class:`PoseEstimationModel` or :class:`ClassificationModel`).
+(:class:`DetectionModel`, :class:`PoseEstimationModel`, :class:`ClassificationModel` or
+:class:`SegmentationModel`).
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ class ModelSpec:
     class_names: Optional[List[str]] = None
     model_cls: Type[SgModel] = DetectionModel  # the task model that wraps the network
     model_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)  # its task-specific arguments
+    # the size the BN statistics are calibrated at, where it is not input_hw (the fully
+    # convolutional segmentation models: their parameters are the same at any size)
+    init_hw: Optional[Tuple[int, int]] = None
 
 
 def get_architecture(model_name: str):
@@ -49,7 +53,8 @@ def get_architecture(model_name: str):
 @torch.no_grad()
 def _calibrate_batch_norm(net: nn.Module, generator: torch.Generator, shape: Tuple[int, ...]) -> None:
     """Set every BatchNorm's running statistics from one eval-mode forward of
-    uniform noise images drawn from ``generator``, at the model's input size.
+    uniform noise images drawn from ``generator``, at the model's input size (or the
+    spec's ``init_hw``).
 
     With (0, 1) running statistics a randomly initialized deep network has no
     normalization in eval mode, and its activations grow or vanish with depth
@@ -111,7 +116,7 @@ def get(
     spec = get_architecture(model_name)(num_classes=num_classes, arch_params=arch_params or {}, **kwargs)
     generator = torch.Generator().manual_seed(seed)
     spec.net.reset_parameters(generator)
-    _calibrate_batch_norm(spec.net, generator, (2, 3, *spec.input_hw))
+    _calibrate_batch_norm(spec.net, generator, (2, 3, *(spec.init_hw or spec.input_hw)))
     model = spec.model_cls(
         name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
         processing=spec.processing, class_names=spec.class_names, device=device, **spec.model_kwargs,

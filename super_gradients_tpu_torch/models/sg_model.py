@@ -1,4 +1,4 @@
-"""SgModel / DetectionModel / PoseEstimationModel / ClassificationModel: an ``nn.Module`` +
+"""SgModel / DetectionModel / PoseEstimationModel / ClassificationModel / SegmentationModel: an ``nn.Module`` +
 task metadata with a predict() surface (counterpart of ``super_gradients_tpu/models/sg_model.py``).
 
 The JAX package compiles preprocess-forward-decode-NMS into one XLA program per
@@ -6,7 +6,7 @@ shape. Here the same steps run eagerly: host processing per image (numpy), then
 per batch one forward of the deploy-form network on the model's device, the
 fp32 decode, and ``batched_nms`` (detection) or ``batched_pose_nms`` (pose) whose
 exact mode is the hand-written CUDA kernel K1 on a GPU; classification takes a softmax on
-the device and the top-k on the host. ``predict`` takes arrays, PIL
+the device and the top-k on the host; segmentation an argmax on the device. ``predict`` takes arrays, PIL
 images, image files, folders and video files (``predict_video``); ``predict_webcam``
 runs on a capture device.
 """
@@ -27,6 +27,7 @@ from super_gradients_tpu_torch.inference.prediction_results import (
     DetectionPrediction,
     ImagesPredictions,
     PoseEstimationPrediction,
+    SegmentationPrediction,
     VideoPredictions,
 )
 from super_gradients_tpu_torch.inference.processing import Processing
@@ -368,4 +369,50 @@ class ClassificationModel(SgModel):
                     confidence=probs[j][order], labels=order, class_names=self._class_names,
                     image=image_list[len(predictions)],
                 ))
+        return ImagesPredictions(predictions)
+
+
+def smallest_int_dtype(num_classes: int) -> torch.dtype:
+    """The narrowest torch integer type that holds the class ids ``0 .. num_classes - 1``."""
+    if num_classes <= 256:
+        return torch.uint8
+    return torch.int16 if num_classes <= 2**15 else torch.int32
+
+
+class SegmentationModel(SgModel):
+    """Segmentation task wrapper: an fp32 forward in eval mode and the argmax over classes on
+    the device; the class map comes to the host in the narrowest integer type and is undone
+    to the image's size by the processing (as the JAX model: no fuse, no bf16)."""
+
+    task = "segmentation"
+
+    @torch.inference_mode()
+    def _class_maps(self, images) -> torch.Tensor:
+        net = self._deploy_net(False, False)
+        x = torch.as_tensor(images).to(self.device, torch.float32).permute(0, 3, 1, 2)
+        logits = net(x)
+        return logits.argmax(dim=1).to(smallest_int_dtype(logits.shape[1]))
+
+    def predict(self, images, batch_size: int = 4) -> ImagesPredictions:
+        """Predict on RGB images of any sizes (an HWC / NHWC array, a PIL image, an image
+        file, a folder of them or a list of these). The last batch is filled up with zero
+        images, as in the JAX package. Returns per-image :class:`SegmentationPrediction`s
+        whose maps have the image's size: int32 where no resize was needed, else uint8 (the
+        JAX package's types)."""
+        image_list, batches, metas = self._prep_host_batches(images, batch_size, pad_last=True)
+        predictions: List[SegmentationPrediction] = []
+        for batch in batches:
+            maps = self._class_maps(torch.from_numpy(batch)).cpu().numpy()
+            for j in range(min(len(batch), len(image_list) - len(predictions))):
+                idx = len(predictions)
+                seg = maps[j].astype(np.int32)
+                h, w = image_list[idx].shape[:2]
+                if metas[idx] is not None and self._processing is not None:
+                    seg = self._processing.postprocess_segmentation(seg, metas[idx])
+                if seg.shape != (h, w):  # no processing, or one that does not undo the resize
+                    from PIL import Image
+
+                    seg = np.asarray(Image.fromarray(seg.astype(np.uint8)).resize((w, h), Image.NEAREST))
+                predictions.append(SegmentationPrediction(segmentation_map=seg, class_names=self._class_names,
+                                                          image=image_list[idx]))
         return ImagesPredictions(predictions)

@@ -64,15 +64,19 @@ class ConvBNAct(nn.Module):
 
 class ConvBNReLU(nn.Module):
     """The same block with its layers under ``seq`` (the reference ``ConvBNReLU``,
-    used by the detection heads: ``heads.head1.stem.seq.conv``)."""
+    used by the detection heads: ``heads.head1.stem.seq.conv``, and by the STDC and
+    PP-LiteSeg segmentation models, some without the BN or without the ReLU)."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel: int, bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+    def __init__(self, in_channels: int, out_channels: int, kernel: int, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 stride: int = 1, groups: int = 1, use_normalization: bool = True, use_activation: bool = True):
         super().__init__()
-        self.seq = nn.Sequential(OrderedDict(
-            conv=nn.Conv2d(in_channels, out_channels, kernel, 1, kernel // 2, bias=False),
-            bn=_bn(out_channels, bn_eps, bn_momentum),
-            act=nn.ReLU(),
-        ))
+        layers = OrderedDict(conv=nn.Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, groups=groups,
+                                            bias=False))
+        if use_normalization:
+            layers["bn"] = _bn(out_channels, bn_eps, bn_momentum)
+        if use_activation:
+            layers["act"] = nn.ReLU()
+        self.seq = nn.Sequential(layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.seq(x)

@@ -4,8 +4,8 @@
 points of its loop as the JAX trainer, with one mutable :class:`PhaseContext`.
 Ported: the event protocol, ``EarlyStop``, ``TimerCallback``, ``LRCallbackBase``,
 ``ProfilerCallback`` (on ``torch.profiler``), ``PPYoloETrainingStageSwitchCallback``
-and the detection visualization callbacks, which draw a batch's predictions
-(``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
+and the detection and segmentation visualization callbacks, which draw a batch's
+predictions (``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
 package registers beyond these are listed in :data:`NOT_PORTED` with their ROADMAP
 item; resolving one raises ``KeyError``.
 """
@@ -21,17 +21,16 @@ from typing import Any, Dict, Optional, Sequence
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import CALLBACKS, register_callback
-from super_gradients_tpu_torch.inference.prediction_results import DetectionPrediction
+from super_gradients_tpu_torch.inference.prediction_results import DetectionPrediction, SegmentationPrediction
 from super_gradients_tpu_torch.ops.nms import NMSOutput, batched_nms
 from super_gradients_tpu_torch.training.dataloaders import loader_max_value
 
 logger = logging.getLogger(__name__)
 
-_SEGMENTATION = "ROADMAP.md queue 1, 'Breadth' (segmentation)"
 NOT_PORTED = {
-    **dict.fromkeys(("SegmentationVisualizationCallback", "ExtremeBatchSegVisualizationCallback"), _SEGMENTATION),
     "ModelConversionCheckCallback": "ROADMAP.md queue 1, 'Deployment and scale-out' (export)",
-    "SlidingWindowValidationCallback": _SEGMENTATION,
+    # detection-only: it tiles through inference/sliding_window.py, whose batched_nms runs K1
+    "SlidingWindowValidationCallback": "ROADMAP.md queue 1, 'Predict-path leftovers' (sliding-window validation)",
     "YoloXTrainingStageSwitchCallback": "ROADMAP.md queue 1, 'Breadth' (YOLOX loss)",
 }
 
@@ -424,5 +423,67 @@ class ExtremeBatchDetectionVisualizationCallback(ExtremeBatchCaseVisualizationCa
         images, nms = detect_for_visualization(context.eval_net, batch[0][: self.max_images],
                                                loader_max_value(context.train_loader), 0.25)
         for j, drawn in enumerate(draw_detections(model, images, nms)):
+            if context.sg_logger is not None:
+                context.sg_logger.add_image(f"{self._tag()}/img{j} (loss={loss:.3f})", drawn, context.epoch)
+
+
+
+def segment_for_visualization(net, images, max_value: Optional[float]):
+    """A host batch ``[B, 3, H, W]`` through ``net`` in eval mode on its device, as the
+    trainer feeds it, then the argmax over classes. Returns the standardized images
+    ``[B, H, W, 3]`` and the class maps ``[B, H, W]`` on the host."""
+    import torch
+
+    from super_gradients_tpu_torch.training.trainer import _images_to_device
+
+    x = _images_to_device(images, next(net.parameters()).device, max_value)
+    with torch.inference_mode():
+        out = net(x)
+        logits = out[0] if isinstance(out, (tuple, list)) else out
+        masks = logits.argmax(dim=1)
+    return x.permute(0, 2, 3, 1).float().cpu().numpy(), masks.cpu().numpy()
+
+
+def draw_segmentations(images, masks, alpha: float = 0.5):
+    """Each image's drawn :class:`SegmentationPrediction` (the image scaled to uint8 as the
+    JAX callbacks scale it)."""
+    import numpy as np
+
+    drawn = []
+    for img, mask in zip(images, masks):
+        img_u8 = np.clip(img * 255.0 if img.max() <= 1.5 else img, 0, 255).astype(np.uint8)
+        drawn.append(SegmentationPrediction(segmentation_map=mask, image=img_u8).draw(alpha=alpha))
+    return drawn
+
+
+@register_callback("SegmentationVisualizationCallback")
+class SegmentationVisualizationCallback(Callback):
+    """Draw the class maps of the trained network over the ``batch_idx``-th validation
+    batch every ``freq`` epochs, up to ``max_images``, into the logger's ``add_image``."""
+
+    def __init__(self, freq: int = 1, batch_idx: int = 0, max_images: int = 4, alpha: float = 0.5):
+        self.freq = freq
+        self.batch_idx = batch_idx
+        self.max_images = max_images
+        self.alpha = alpha
+
+    def on_validation_batch_end(self, context: PhaseContext):
+        if context.epoch % self.freq != 0 or context.batch_idx != self.batch_idx or context.valid_batch is None:
+            return
+        images, masks = segment_for_visualization(context.eval_net, context.valid_batch[0][: self.max_images],
+                                                  loader_max_value(context.valid_loader))
+        for j, drawn in enumerate(draw_segmentations(images, masks, self.alpha)):
+            if context.sg_logger is not None:
+                context.sg_logger.add_image(f"valid_segmentation/img{j}", drawn, context.epoch)
+
+
+@register_callback("ExtremeBatchSegVisualizationCallback")
+class ExtremeBatchSegVisualizationCallback(ExtremeBatchCaseVisualizationCallback):
+    """The extreme-loss train batch's class maps, drawn by the epoch's trained network."""
+
+    def _visualize(self, context, batch, loss):
+        images, masks = segment_for_visualization(context.eval_net, batch[0][: self.max_images],
+                                                  loader_max_value(context.train_loader))
+        for j, drawn in enumerate(draw_segmentations(images, masks)):
             if context.sg_logger is not None:
                 context.sg_logger.add_image(f"{self._tag()}/img{j} (loss={loss:.3f})", drawn, context.epoch)

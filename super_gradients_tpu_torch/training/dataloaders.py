@@ -16,9 +16,14 @@ process.
 ``classification_test_dataloader``, ``imagenet_train`` / ``imagenet_val``,
 ``imagenet_resnet50_train`` / ``imagenet_resnet50_val``,
 ``cifar10_train`` / ``cifar10_val``, ``cifar100_train`` / ``cifar100_val`` and
-``mnist_train`` / ``mnist_val``. The COCO detection datasets end in
-``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the trainer
-to standardize on the device; the pose and classification datasets yield float32 images.
+``mnist_train`` / ``mnist_val``, and for segmentation ``segmentation_test_dataloader``,
+``segmentation_train`` / ``segmentation_val`` (paired image and mask folders, also
+registered as ``cityscapes_stdc_seg50_train`` / ``_val``, as in the JAX package),
+``cityscapes_train`` / ``cityscapes_val`` and ``cityscapes_{seg50, seg75, ddrnet,
+regseg48, segformer}_{train, val}`` (the Cityscapes layout). The COCO detection datasets
+end in ``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the
+trainer to standardize on the device; the pose, classification and segmentation
+datasets yield float32 images.
 """
 
 from __future__ import annotations
@@ -34,10 +39,12 @@ from super_gradients_tpu_torch.common.registry import DATALOADERS, register_data
 from super_gradients_tpu_torch.training.datasets import (
     CIFAR10Dataset,
     CIFAR100Dataset,
+    CityscapesDataset,
     COCODetectionDataset,
     COCOPoseEstimationDataset,
     ImageFolderDataset,
     MNISTDataset,
+    SegmentationDataset,
 )
 from super_gradients_tpu_torch.training.datasets_roboflow import RoboflowDetectionDataset
 from super_gradients_tpu_torch.training.transforms.detection import (
@@ -143,6 +150,29 @@ class RandomPoseDataset:
             target[j, 1:5] = [x1, y1, x2, y2]
             target[j, 5:] = kp.reshape(-1)
         return np.ascontiguousarray(img.transpose(2, 0, 1)), target
+
+
+class RandomSegmentationDataset:
+    """Images ``[3, H, W]`` float32 in [0, 1) and int32 masks ``[H, W]``; sample ``i`` is
+    drawn from ``np.random.RandomState(seed + i)``: the JAX dataset's sample ``i``, its
+    image CHW."""
+
+    def __init__(self, num_samples: int = 16, image_size: Tuple[int, int] = (128, 128), num_classes: int = 19,
+                 seed: int = 0):
+        self.num_samples = num_samples
+        self.image_size = tuple(image_size)
+        self.num_classes = num_classes
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, i):
+        rng = np.random.RandomState(self.seed + i)
+        h, w = self.image_size
+        img = rng.rand(h, w, 3).astype(np.float32)
+        mask = rng.randint(0, self.num_classes, size=(h, w)).astype(np.int32)
+        return np.ascontiguousarray(img.transpose(2, 0, 1)), mask
 
 
 class EpochSampler(torch.utils.data.Sampler):
@@ -415,3 +445,59 @@ def mnist_train(root: str = "/data/mnist", batch_size: int = 256, **kw) -> DataL
 def mnist_val(root: str = "/data/mnist", batch_size: int = 512, **kw) -> DataLoader:
     return DataLoader(MNISTDataset(root, train=False), batch_size=batch_size, shuffle=False, drop_last=False,
                       **_loader_kwargs(kw))
+
+
+@register_dataloader("segmentation_test_dataloader")
+def segmentation_test_dataloader(batch_size: int = 4, image_size: Tuple[int, int] = (128, 128), dataset_size: int = 16,
+                                 num_classes: int = 19, **kw) -> DataLoader:
+    return DataLoader(RandomSegmentationDataset(dataset_size, image_size, num_classes), batch_size=batch_size,
+                      shuffle=True, **_loader_kwargs(kw))
+
+
+# the JAX package registers the STDC-Seg50 recipe's loader names as these paired-folder
+# loaders, not as the Cityscapes layout (ROADMAP.md section 3): kept as they are
+@register_dataloader("segmentation_train")
+@register_dataloader("cityscapes_stdc_seg50_train")
+def segmentation_train(root: str, batch_size: int = 8, image_size=(512, 1024), **kw) -> DataLoader:
+    return DataLoader(SegmentationDataset(root, image_size=tuple(image_size)), batch_size=batch_size, shuffle=True,
+                      **_loader_kwargs(kw))
+
+
+@register_dataloader("segmentation_val")
+@register_dataloader("cityscapes_stdc_seg50_val")
+def segmentation_val(root: str, batch_size: int = 8, image_size=(512, 1024), **kw) -> DataLoader:
+    return DataLoader(SegmentationDataset(root, image_size=tuple(image_size)), batch_size=batch_size, shuffle=False,
+                      drop_last=False, **_loader_kwargs(kw))
+
+
+def _cityscapes_loader(root: str, split: str, batch_size: int, image_size, shuffle: bool, kw: Dict) -> DataLoader:
+    """The Cityscapes ``split`` at ``image_size``; a train loader shuffles and drops its last
+    partial batch."""
+    return DataLoader(CityscapesDataset(root=root, split=split, image_size=tuple(image_size)), batch_size=batch_size,
+                      shuffle=shuffle, drop_last=shuffle, **_loader_kwargs(kw))
+
+
+def _register_cityscapes_family(name: str, train_size, val_size) -> None:
+    @register_dataloader(f"cityscapes_{name}_train")
+    def _train(root: str, batch_size: int = 8, image_size=None, **kw) -> DataLoader:
+        return _cityscapes_loader(root, "train", batch_size, image_size or train_size, True, kw)
+
+    @register_dataloader(f"cityscapes_{name}_val")
+    def _val(root: str, batch_size: int = 8, image_size=None, **kw) -> DataLoader:
+        return _cityscapes_loader(root, "val", batch_size, image_size or val_size, False, kw)
+
+
+for _name, _train_size, _val_size in [("seg50", (512, 1024), (512, 1024)), ("seg75", (768, 1536), (768, 1536)),
+                                      ("ddrnet", (1024, 1024), (1024, 2048)), ("regseg48", (1024, 1024), (1024, 2048)),
+                                      ("segformer", (1024, 1024), (1024, 2048))]:
+    _register_cityscapes_family(_name, _train_size, _val_size)
+
+
+@register_dataloader("cityscapes_train")
+def cityscapes_train(root: str, batch_size: int = 8, image_size=(512, 1024), **kw) -> DataLoader:
+    return _cityscapes_loader(root, "train", batch_size, image_size, True, kw)
+
+
+@register_dataloader("cityscapes_val")
+def cityscapes_val(root: str, batch_size: int = 8, image_size=(512, 1024), **kw) -> DataLoader:
+    return _cityscapes_loader(root, "val", batch_size, image_size, False, kw)

@@ -1,4 +1,4 @@
-"""Detection, pose and classification datasets (counterpart of
+"""Detection, pose, classification and segmentation datasets (counterpart of
 ``super_gradients_tpu/training/datasets.py``).
 
 A sample leaves the dataset as ``(image [3, H, W], targets [max_boxes, 5])``
@@ -22,6 +22,11 @@ The classification datasets (:class:`ImageFolderDataset`, :class:`CIFAR10Dataset
 label)``: the JAX sample, its image CHW. They ship float32, not uint8: CIFAR's images are
 normalized by its mean and std, and the others divide by 255.0, which the trainer's uint8
 standardize (``x * float32(1/255)``) would miss in the last bit of some pixels.
+
+The segmentation datasets (:class:`SegmentationDataset`, :class:`CityscapesDataset`) yield
+``(image [3, H, W] float32, mask [H, W] int32)``: the image resized by PIL's bilinear filter
+and divided by 255.0 (float32, as the classification ones), the mask resized by PIL's
+nearest filter; Cityscapes labelIds become trainIds through a lookup table, void 255.
 
 Image files are read through PIL, imported where a file is read, so that the module
 imports without it.
@@ -544,3 +549,82 @@ class MNISTDataset:
 
     def __getitem__(self, i):
         return self.images[i][None].astype(np.float32) / 255.0, int(self.labels[i])
+
+
+def _read_resized(path: str, image_hw: Tuple[int, int], mask: bool) -> np.ndarray:
+    """An image file resized to ``image_hw`` by PIL: an RGB image bilinearly, / 255.0 in
+    float32, ``[3, H, W]``; a mask with the nearest filter, int32 ``[H, W]`` (its first
+    channel where it has more)."""
+    pil = _pil_image()
+    size = (image_hw[1], image_hw[0])
+    with pil.open(path) as im:
+        if mask:
+            out = np.asarray(im.resize(size, pil.NEAREST), np.int32)
+            return out[..., 0] if out.ndim == 3 else out
+        img = np.asarray(im.convert("RGB").resize(size, pil.BILINEAR), np.float32) / 255.0
+    return np.ascontiguousarray(img.transpose(2, 0, 1))
+
+
+class SegmentationDataset:
+    """Paired ``root/images/<name>.<ext>`` and ``root/masks/<name>.(png|jpg|bmp)`` folders,
+    the images in sorted order, each sample resized to ``image_size``."""
+
+    def __init__(self, root: str, images_dir: str = "images", masks_dir: str = "masks",
+                 image_size: Tuple[int, int] = (512, 512)):
+        self.root = root
+        self.image_size = tuple(image_size)
+        self.img_dir = os.path.join(root, images_dir)
+        self.mask_dir = os.path.join(root, masks_dir)
+        self.items = [f for f in sorted(os.listdir(self.img_dir)) if f.lower().endswith((".jpg", ".jpeg", ".png", ".bmp"))]
+
+    def __len__(self):
+        return len(self.items)
+
+    def _mask_path(self, name: str) -> str:
+        base = os.path.splitext(name)[0]
+        for ext in (".png", ".jpg", ".bmp"):
+            path = os.path.join(self.mask_dir, base + ext)
+            if os.path.exists(path):
+                return path
+        raise FileNotFoundError(f"no mask for {name} in {self.mask_dir}")
+
+    def __getitem__(self, i):
+        name = self.items[i]
+        return (_read_resized(os.path.join(self.img_dir, name), self.image_size, mask=False),
+                _read_resized(self._mask_path(name), self.image_size, mask=True))
+
+
+# Cityscapes labelId -> trainId (the 19 evaluated classes; every other id is void, 255)
+CITYSCAPES_ID_TO_TRAIN_ID = {
+    7: 0, 8: 1, 11: 2, 12: 3, 13: 4, 17: 5, 19: 6, 20: 7, 21: 8, 22: 9, 23: 10,
+    24: 11, 25: 12, 26: 13, 27: 14, 28: 15, 31: 16, 32: 17, 33: 18,
+}
+
+
+class CityscapesDataset:
+    """The Cityscapes layout: ``leftImg8bit/<split>/<city>/*_leftImg8bit.png`` with its
+    ``gtFine/<split>/<city>/*_gtFine_labelIds.png``, cities and files in sorted order; the
+    mask's labelIds mapped to trainIds."""
+
+    def __init__(self, root: str, split: str = "train", image_size: Tuple[int, int] = (512, 1024)):
+        self.root = root
+        self.image_size = tuple(image_size)
+        img_root = os.path.join(root, "leftImg8bit", split)
+        gt_root = os.path.join(root, "gtFine", split)
+        self.pairs: List[Tuple[str, str]] = []
+        for city in sorted(os.listdir(img_root)) if os.path.isdir(img_root) else []:
+            for f in sorted(os.listdir(os.path.join(img_root, city))):
+                if f.endswith("_leftImg8bit.png"):
+                    mask = f.replace("_leftImg8bit.png", "_gtFine_labelIds.png")
+                    self.pairs.append((os.path.join(img_root, city, f), os.path.join(gt_root, city, mask)))
+        self._lut = np.full(256, 255, np.int32)
+        for label_id, train_id in CITYSCAPES_ID_TO_TRAIN_ID.items():
+            self._lut[label_id] = train_id
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, i):
+        img_path, mask_path = self.pairs[i]
+        mask = _read_resized(mask_path, self.image_size, mask=True)
+        return _read_resized(img_path, self.image_size, mask=False), self._lut[np.clip(mask, 0, 255)]

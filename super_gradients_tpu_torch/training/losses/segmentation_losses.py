@@ -1,0 +1,227 @@
+"""Segmentation losses (counterpart of
+``super_gradients_tpu/training/losses/segmentation_losses.py``).
+
+Each loss is ``loss(outputs, targets) -> (loss, {name: value})``. Outputs are ``[B, C, H, W]``
+logits, or the tuple ``(main, *aux)`` of a model in train mode; targets ``[B, H, W]`` int
+class ids, ``ignore_index`` (255 by default) marking void pixels. Every loss computes in
+fp32 on bf16 or fp32 logits (in fp64 on fp64 ones, for reference runs), and an ignored
+pixel weighs nothing: the mean
+cross-entropy divides by ``max(valid pixels, 1)``, so an all-void batch gives 0 where
+``F.cross_entropy(ignore_index=)`` gives NaN.
+
+OHEM is batch-global, as in JAX: the valid pixels' losses are sorted in descending order;
+where the ``num_mining``-th exceeds ``-log(threshold)`` every pixel above it is kept, else
+the top ``num_mining``. ``DiceCEEdgeLoss`` is the JAX package's: CE and soft dice on the
+main map and weighted CE on the auxiliary maps, with no edge term.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from super_gradients_tpu_torch.common.registry import register_loss
+
+
+def _fp32(x: torch.Tensor) -> torch.Tensor:
+    """fp32, or fp64 where the input is fp64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def _main(outputs) -> torch.Tensor:
+    return outputs[0] if isinstance(outputs, (tuple, list)) else outputs
+
+
+def _valid_mask(targets: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    return (targets != ignore_index).float()
+
+
+def _safe_targets(targets: torch.Tensor, ignore_index: int) -> torch.Tensor:
+    return torch.where(targets == ignore_index, 0, targets).long()
+
+
+def pixel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = 255) -> torch.Tensor:
+    """Per-pixel cross-entropy ``[B, H, W]``, 0 at ignored pixels."""
+    logp = F.log_softmax(_fp32(logits), dim=1)
+    ce = -logp.gather(1, _safe_targets(targets, ignore_index)[:, None])[:, 0]
+    return ce * _valid_mask(targets, ignore_index)
+
+
+@register_loss("SegCrossEntropyLoss")
+class SegCrossEntropyLoss:
+    def __init__(self, ignore_index: int = 255):
+        self.ignore_index = ignore_index
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        ce = pixel_cross_entropy(_main(outputs), targets, self.ignore_index)
+        loss = ce.sum() / _valid_mask(targets, self.ignore_index).sum().clamp(min=1.0)
+        return loss, {"SegCrossEntropyLoss": loss}
+
+
+@register_loss("OhemCELoss")
+class OhemCELoss:
+    """Online hard-example-mining cross-entropy over the batch's valid pixels: at least
+    ``mining_percent`` of them, more where more exceed ``-log(threshold)``."""
+
+    def __init__(self, threshold: float = 0.7, mining_percent: float = 0.1, ignore_lb: int = 255):
+        if not 0 <= mining_percent <= 1:
+            raise ValueError(f"mining percent must be in [0, 1], got {mining_percent}")
+        # float32 values held as Python floats, which a float32 tensor takes exactly
+        self.thresh = float(-np.log(np.float32(threshold)))
+        self.mining_percent = float(np.float32(mining_percent))
+        self.ignore_lb = ignore_lb
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        ce = pixel_cross_entropy(_main(outputs), targets, self.ignore_lb).reshape(-1)
+        valid = _valid_mask(targets, self.ignore_lb).reshape(-1)
+        n_valid = valid.sum().to(torch.int32)
+        # int32(float32(mining_percent) * float32(n_valid)), as JAX computes it
+        num_mining = torch.minimum((n_valid.float() * self.mining_percent).to(torch.int32), n_valid - 1).clamp(min=0)
+        sorted_ce = torch.sort(ce * valid, descending=True).values  # void pixels are 0s at the tail
+        pivot = sorted_ce[num_mining.long()]
+        idx = torch.arange(sorted_ce.shape[0], device=ce.device)
+        # thresh > 0, so `> thresh` also leaves out the zero tail
+        keep = torch.where(pivot > self.thresh, sorted_ce > self.thresh, idx < num_mining) & (idx < n_valid)
+        loss = (sorted_ce * keep).sum() / keep.sum().clamp(min=1)
+        loss = torch.where(n_valid == 0, torch.zeros_like(loss), loss)
+        return loss, {"OhemCELoss": loss}
+
+
+def soft_dice(logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = 255, eps: float = 1e-5) -> torch.Tensor:
+    """One minus the mean over images and classes of the soft dice of the softmax against
+    the one-hot targets, void pixels left out. The per-class sums over the target class are
+    scattered, not taken from a ``[B, H, W, C]`` one-hot."""
+    b, c = logits.shape[:2]
+    valid = _valid_mask(targets, ignore_index)
+    probs = F.softmax(_fp32(logits), dim=1) * valid[:, None]
+    safe = _safe_targets(targets, ignore_index).reshape(b, -1)
+    p_target = probs.reshape(b, c, -1).gather(1, safe[:, None])[:, 0]
+    inter = probs.new_zeros((b, c)).scatter_add_(1, safe, p_target)
+    target_sum = probs.new_zeros((b, c)).scatter_add_(1, safe, valid.reshape(b, -1).to(probs.dtype))
+    dice = (2 * inter + eps) / (probs.sum(dim=(2, 3)) + target_sum + eps)
+    return 1.0 - dice.mean()
+
+
+@register_loss("DiceLoss")
+class DiceLoss:
+    def __init__(self, ignore_index: int = 255):
+        self.ignore_index = ignore_index
+
+    def __call__(self, outputs, targets):
+        loss = soft_dice(_main(outputs), targets, self.ignore_index)
+        return loss, {"DiceLoss": loss}
+
+
+@register_loss("BinaryDiceLoss")
+class BinaryDiceLoss:
+    """Dice of ``sigmoid(logits [B, 1, H, W])`` against a binary map ``[B, H, W]``, smoothed by 1."""
+
+    def __call__(self, logits, targets_binary):
+        p = torch.sigmoid(_fp32(logits))[:, 0]
+        inter = (p * targets_binary).sum(dim=(1, 2))
+        denom = p.sum(dim=(1, 2)) + targets_binary.sum(dim=(1, 2))
+        loss = 1.0 - ((2 * inter + 1.0) / (denom + 1.0)).mean()
+        return loss, {"BinaryDiceLoss": loss}
+
+
+_LAPLACIAN = ((-1.0, -1.0, -1.0), (-1.0, 8.0, -1.0), (-1.0, -1.0, -1.0))
+
+
+def detail_target(targets: torch.Tensor, ignore_index: int = 255) -> torch.Tensor:
+    """The STDC boundary ground truth ``[B, H, W]``: the Laplacian of the class map at
+    strides 1, 2 and 4 (padding 1), each clipped to [0, 1], resized back (``nearest``:
+    torch's ``nearest-exact``) and binarized at 0.1, fused with weights 0.6 / 0.3 / 0.1 and
+    binarized at 0.1."""
+    t = torch.where(targets == ignore_index, 0, targets).float()[:, None]
+    lap = torch.tensor(_LAPLACIAN, device=t.device).reshape(1, 1, 3, 3)
+
+    def edge(stride: int) -> torch.Tensor:
+        y = F.conv2d(t, lap, stride=stride, padding=1).abs().clamp(0, 1.0)
+        if stride > 1:
+            y = F.interpolate(y, size=t.shape[-2:], mode="nearest-exact")
+        return (y > 0.1).float()
+
+    fused = 0.6 * edge(1) + 0.3 * edge(2) + 0.1 * edge(4)
+    return (fused > 0.1).float()[:, 0]
+
+
+def _bce_with_logits(z: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Elementwise ``max(z, 0) - z * t + log1p(exp(-|z|))``, JAX's form."""
+    return z.clamp(min=0) - z * t + torch.log1p(torch.exp(-z.abs()))
+
+
+@register_loss("STDCLoss")
+class STDCLoss:
+    """OHEM cross-entropy on the main and the two auxiliary maps, and BCE (a mean over every
+    pixel, void ones included) plus binary dice of the detail map against
+    :func:`detail_target`."""
+
+    def __init__(self, num_classes: int = 19, ignore_index: int = 255, threshold: float = 0.7,
+                 mining_percent: float = 0.1, weights: Sequence[float] = (1.0, 1.0, 1.0),
+                 detail_weights: Sequence[float] = (1.0, 1.0)):
+        self.ignore_index = ignore_index
+        self.ohem = OhemCELoss(threshold, mining_percent, ignore_index)
+        self.weights = tuple(weights)  # main, aux32, aux16
+        self.detail_weights = tuple(detail_weights)  # bce, dice
+
+    def __call__(self, outputs, targets):
+        if not isinstance(outputs, (tuple, list)):
+            loss, _ = self.ohem(outputs, targets)
+            return loss, {"STDCLoss/main": loss}
+        main, aux32, aux16, detail8 = outputs
+        l_main, _ = self.ohem(main, targets)
+        l_a32, _ = self.ohem(aux32, targets)
+        l_a16, _ = self.ohem(aux16, targets)
+        dt = detail_target(targets, self.ignore_index)
+        l_bce = _bce_with_logits(_fp32(detail8)[:, 0], dt).mean()
+        l_dice, _ = BinaryDiceLoss()(detail8, dt)
+        loss = (self.weights[0] * l_main + self.weights[1] * l_a32 + self.weights[2] * l_a16
+                + self.detail_weights[0] * l_bce + self.detail_weights[1] * l_dice)
+        return loss, {"loss_main": l_main, "loss_aux": l_a32 + l_a16, "loss_detail": l_bce + l_dice}
+
+
+@register_loss("DiceCEEdgeLoss")
+class DiceCEEdgeLoss:
+    """Cross-entropy plus soft dice on the main map and ``aux_weights``-weighted
+    cross-entropy on each auxiliary map (the last weight repeats). ``num_aux_heads``,
+    ``ce_edge_weights`` and ``weights`` are accepted and not read, as in the JAX package."""
+
+    def __init__(self, num_classes: int = 19, ignore_index: int = 255, num_aux_heads: int = 1,
+                 ce_edge_weights: Sequence[float] = (0.5, 0.5), weights: Sequence[float] = (1.0,),
+                 aux_weights: Sequence[float] = (0.4,)):
+        self.ignore_index = ignore_index
+        self.aux_weights = tuple(aux_weights)
+        self.ce = SegCrossEntropyLoss(ignore_index)
+
+    def __call__(self, outputs, targets):
+        if not isinstance(outputs, (tuple, list)):
+            outputs = (outputs,)
+        main = outputs[0]
+        l_main_ce, _ = self.ce(main, targets)
+        l_dice = soft_dice(main, targets, self.ignore_index)
+        loss = l_main_ce + l_dice
+        for i, aux in enumerate(outputs[1:]):
+            w = self.aux_weights[min(i, len(self.aux_weights) - 1)]
+            loss = loss + w * self.ce(aux, targets)[0]
+        return loss, {"loss_ce": l_main_ce, "loss_dice": l_dice}
+
+
+@register_loss("BCEDiceLoss")
+class BCEDiceLoss:
+    """``w0 * BCE-with-logits + w1 * binary dice`` on a one-channel map against a binary
+    target ``[B, H, W]``."""
+
+    def __init__(self, loss_weights: Sequence[float] = (0.5, 0.5), logits: bool = True):
+        self.loss_weights = tuple(loss_weights)
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        logits = _main(outputs)
+        t = targets.float()
+        z = logits[:, 0] if logits.dim() == t.dim() + 1 else logits
+        bce = _bce_with_logits(_fp32(z), t).mean()
+        dice, _ = BinaryDiceLoss()(z[:, None], t)
+        loss = self.loss_weights[0] * bce + self.loss_weights[1] * dice
+        return loss, {"bce": bce, "dice": dice}

@@ -1,5 +1,5 @@
 """Metrics of the port (counterpart of ``super_gradients_tpu/training/metrics/__init__.py``;
-the classification, detection and pose metrics so far)."""
+the classification, detection, pose and segmentation metrics so far)."""
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
 from super_gradients_tpu_torch.common.registry import METRICS
@@ -17,11 +17,17 @@ from super_gradients_tpu_torch.training.metrics.detection import (  # noqa: F401
     DetectionMetricsDistanceBased,
 )
 from super_gradients_tpu_torch.training.metrics.pose_estimation import PoseEstimationMetrics  # noqa: F401
+from super_gradients_tpu_torch.training.metrics.segmentation import (  # noqa: F401
+    BinaryDice,
+    BinaryIoU,
+    Dice,
+    IoU,
+    PixelAccuracy,
+)
 
 _BREADTH = "ROADMAP.md queue 1, 'Breadth'"
 # registered in the JAX package, not here yet
 NOT_PORTED = {
-    **dict.fromkeys(("Dice", "IoU", "PixelAccuracy", "BinaryDice", "BinaryIOU", "BinaryIoU"), _BREADTH + " (segmentation)"),
     **dict.fromkeys(("DeltaMetric", "DepthMAE", "DepthMSE", "DepthRMSE"), _BREADTH + " (depth)"),
 }
 

@@ -189,7 +189,7 @@ def test_get_metric_and_collection():
     assert isinstance(m, det.DetectionMetrics_050) and get_metric(m) is m
     assert get_metric({"DetectionMetrics": {"num_cls": 7}}).num_cls == 7
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_metric("PixelAccuracy")
+        get_metric("DepthMAE")
     with pytest.raises(FactoryError, match="Did you mean `DetectionMetrics`"):
         get_metric("detectionmetrics")
     coll = MetricCollection([det.DetectionMetrics(num_cls=4), det.DetectionMetrics_050(num_cls=4)])

@@ -248,9 +248,9 @@ def _model_stub():
     (dict(sg_logger="dagshub_sg_logger"), None, NotImplementedError),
     (dict(sg_logger="deci_platform_sg_logger"), None, NotImplementedError),
     (dict(sg_logger_params={"monitor_system": True}), None, NotImplementedError),
-    (dict(train_metrics_list=["PixelAccuracy"]), None, KeyError),
-    (dict(valid_metrics_list=[{"IoU": {}}]), None, KeyError),
-    (dict(phase_callbacks=["SegmentationVisualizationCallback"]), None, KeyError),
+    (dict(train_metrics_list=["DepthMAE"]), None, KeyError),
+    (dict(valid_metrics_list=[{"DepthRMSE": {}}]), None, KeyError),
+    (dict(phase_callbacks=["SlidingWindowValidationCallback"]), None, KeyError),
     (dict(phase_callbacks=[{"YoloXTrainingStageSwitchCallback": {}}]), None, KeyError),
     (dict(), "additional_callbacks", KeyError),
     (dict(phase_callbacks=["x"]), None, KeyError),

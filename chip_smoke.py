@@ -123,7 +123,26 @@ result) without CUDA or without the port's sources next to it. Phases:
    ``cityscapes_stdc_base`` (bf16, 2 epochs, 8 workers) on a Cityscapes-layout tree of 16 + 8
    1024x2048 PNGs written by ``tools/cityscapes_synthetic.py``: every loss finite, every
    parameter changed, ``evaluate_checkpoint`` within 1e-6 of a direct ``Trainer.evaluate`` with
-   a planted fault beyond it, ``resume_experiment`` taking no step, the bytes of a batch.
+   a planted fault beyond it, ``resume_experiment`` taking no step, the bytes of a batch;
+16. PP-YOLOE-S and YOLOX-S at 640 (published widths and depths, 80 classes, seed 0, the
+   prediction kernels redrawn as ``spread_zoo_head`` says): (a) fp32 ``predict()`` (TF32 off,
+   exact NMS) on phase 3's request and a PIL image on the card against the CPU (phase 4's
+   matched-fraction rule), and PP-YOLOE's fused forward against its unfused one on the card;
+   (b) fused bf16 ``predict_batch_tensor`` at b8 and b32: img/s, forward and ``batched_nms``
+   ms, idle share; (c) K1 bit-equal to its plain version on each model's captured candidates
+   (PP-YOLOE's from its logits, YOLOX's from its probability scores) and timed; (d)
+   ``SlidingWindowInferenceDetectionWrapper`` (tile 640, step 512) over YOLO-NAS-M and
+   PP-YOLOE-S on a seeded 1080x1920 image, GPU against CPU, one K1 launch an image over its
+   8 tiles' 67,200 anchors, timed, then ``SlidingWindowValidationCallback``'s JAX-equal
+   ``TypeError``; (e) one fp32 SGD YOLOX-S step at b2 on the card and on the CPU held to an
+   fp64 CPU step (phase 8's rule, the SimOTA assignment compared, then shared), and the bf16
+   step at b16 by part for YOLOX-S (SimOTA), PP-YOLOE-S with ATSS and with TAL, with idle share
+   and peak memory; (f) ``train_from_recipe`` of ``roboflow_yolox`` and ``roboflow_ppyoloe``
+   on phase 11's dataset (2 epochs of b16, bf16, both stage switches cut to epoch 1: L1 on,
+   mosaic and mixup closed, ATSS to TAL), K1 once a validation batch, ``evaluate_checkpoint``
+   within 1e-6 of a direct ``Trainer.evaluate`` with a planted fault beyond it,
+   ``resume_experiment`` taking no step, and a few batches of ``coco2017_train_ppyoloe`` with
+   ``multiscale`` over a COCO-layout copy of the images at the sizes of its schedule.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -652,8 +671,12 @@ def _one_step(torch, model, images, targets, assign=None, base=COCO_YOLO_NAS):
     out = step.forward(images)
     own = step.criterion.assign(out, targets)
     if assign is not None:
-        step.criterion.assigner = _FixedAssigner(type(assign)(*(t.to(images.device, t.dtype if not t.is_floating_point()
-                                                                          else images.dtype) for t in assign)))
+        fixed = _FixedAssigner(type(assign)(*(t.to(images.device, t.dtype if not t.is_floating_point()
+                                                   else images.dtype) for t in assign)))
+        if hasattr(step.criterion, "assigner"):
+            step.criterion.assigner = fixed
+        else:  # YoloXDetectionLoss: SimOTA is its own method
+            step.criterion._assign = fixed
     loss, comps = step.loss(out, targets)
     step.backward(loss)
     grads = {k: p.grad.detach().double().cpu() for k, p in step.state.net.named_parameters() if p.grad is not None}
@@ -2376,6 +2399,512 @@ def phase_segmentation_recipes(torch, np, root):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 16: PP-YOLOE and YOLOX
+
+ZOO_MODELS = ("ppyoloe_s", "yolox_s")
+# The random init gives PP-YOLOE zero prediction kernels (every anchor scores 0.01, every box
+# alike) and YOLOX a heavy-tailed head whose scores saturate at 1.0 in fp32, whose raw size
+# regression reaches the exp clip, and whose best scores sit on the letterbox's grey padding,
+# where every anchor sees the same input (boxes clipped to zero area, equal scores): exact
+# ties and degenerate boxes, which leave a GPU / CPU comparison to rounding. So 16a redraws the
+# prediction kernels from a seeded normal: PP-YOLOE's scaled to outputs of these standard
+# deviations on noise, class biases at 0 ...
+ZOO_HEAD_STD = {"pred_cls": 2.0, "pred_reg": 2.0}
+# ... YOLOX's scaled on phase 3's letterboxed request: the class and objectness logits to this
+# standard deviation about the prior, each channel's sign chosen so the letterbox grey (114)
+# scores below its mean (background, as in a trained detector); the size regression to a
+# largest |value| of 2 (sizes within exp(+-2) strides)
+ZOO_YOLOX_SPREAD = {"cls_preds": 1.5, "obj_preds": 1.5, "reg_preds": 2.0}
+# 16a's score threshold (the predict default)
+ZOO_CONF = {"ppyoloe_s": 0.25, "yolox_s": 0.25}
+# |fused - unfused| fp32 forward on the card (TF32 off), scores and boxes (px): the re-parameterized
+# RepVGG sums its branches in another order; the detection sets at the 300 cap differ by a few
+# boxes ranked near the cap, so 16a prints their matched fraction and gates the forward
+ZOO_FUSE_TOL = (1e-3, 0.1)
+# super_gradients_tpu/recipes/coco2017_yolox.yaml and coco2017_ppyoloe_s.yaml, bf16
+COCO_YOLOX = dict(
+    initial_lr=0.02, lr_mode="CosineLRScheduler", cosine_final_lr_ratio=0.05, lr_warmup_epochs=0,
+    zero_weight_decay_on_bias_and_bn=True, loss="YoloXDetectionLoss",
+    criterion_params={"num_classes": 80, "strides": [8, 16, 32]}, optimizer="SGD",
+    optimizer_params={"momentum": 0.9, "weight_decay": 5e-4, "nesterov": True}, ema=True, mixed_precision=True,
+    metric_to_watch="mAP@0.50:0.95", valid_metrics_list=[{"DetectionMetrics": {"num_cls": 80, "nms_mode": "exact"}}],
+)
+COCO_PPYOLOE = dict(
+    warmup_mode="LinearBatchLRWarmup", warmup_initial_lr=1e-6, lr_warmup_steps=1000, initial_lr=2e-3,
+    lr_mode="CosineLRScheduler", cosine_final_lr_ratio=0.1, zero_weight_decay_on_bias_and_bn=False,
+    loss="PPYoloELoss", criterion_params={"num_classes": 80, "use_static_assigner": True}, optimizer="AdamW",
+    optimizer_params={"weight_decay": 1e-4}, ema=True, ema_params={"decay": 0.9997, "decay_type": "threshold"},
+    mixed_precision=True, metric_to_watch="mAP@0.50:0.95",
+    valid_metrics_list=[{"DetectionMetrics": {"num_cls": 80, "nms_mode": "exact"}}],
+)
+
+
+def spread_zoo_head(torch, np, model):
+    """Redraw the prediction convs' kernels from a seeded normal and scale them on the card:
+    PP-YOLOE's to ``ZOO_HEAD_STD`` on noise (class biases at 0), YOLOX's to ``ZOO_YOLOX_SPREAD``
+    on phase 3's letterboxed 4-image request, the letterbox grey below each channel's mean."""
+    from super_gradients_tpu_torch.models.detection.yolo_nas import CLS_PRIOR_BIAS
+
+    gen = torch.Generator().manual_seed(0)
+    spread = ZOO_HEAD_STD if model.name.startswith("ppyoloe") else ZOO_YOLOX_SPREAD
+    convs = {k: m for k, m in model.net.named_modules()
+             if isinstance(m, torch.nn.Conv2d) and len(k.split(".")) > 1 and k.split(".")[-2] in spread}
+    check(len(convs) in (6, 9), f"{model.name}: {len(convs)} prediction convs")
+    fields = {"pred_cls": "cls_logits", "pred_reg": "reg_distri", "cls_preds": "cls_logits",
+              "obj_preds": "obj_logits", "reg_preds": "reg_raw"}
+    with torch.no_grad():
+        for k, m in convs.items():
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen))
+            if k.split(".")[-2] == "pred_cls":
+                m.bias.zero_()
+        if spread is ZOO_HEAD_STD:
+            out = model.net(torch.rand((2, 3, 640, 640), generator=torch.Generator().manual_seed(9)).to(model.device))
+            for k, m in convs.items():
+                kind = k.split(".")[-2]
+                m.weight.mul_(spread[kind] / float(getattr(out, fields[kind]).float().std()))
+            return model
+        for m in convs.values():
+            m.bias.zero_()
+        _, batches, _ = model._prep_host_batches(request_images(np, 3), 8)
+        out = model.net(torch.from_numpy(batches[0]).permute(0, 3, 1, 2).to(model.device))
+        grey = model.net(torch.full((1, 3, 640, 640), 114 / 255.0, device=model.device))
+        starts = np.cumsum((0,) + out.num_anchors_list)
+        for kind in spread:
+            value, background = getattr(out, fields[kind]), getattr(grey, fields[kind])
+            level_convs = [m for k, m in convs.items() if k.split(".")[-2] == kind]
+            if kind == "reg_preds":
+                for m in level_convs:
+                    m.weight.mul_(spread[kind] / float(value.abs().max()))
+                continue
+            # per level and channel: the mean over the request, and the side the grey lies on
+            stats = []
+            for m, a, n in zip(level_convs, starts, out.num_anchors_list):
+                v = value[:, a:a + n].reshape(-1, m.out_channels)
+                mean, g = v.mean(0), background[0, a + n // 2 + int(n ** 0.5) // 2].reshape(-1)
+                stats.append((m, v, mean, torch.where(g > mean, -1.0, 1.0)))
+            std = float(torch.cat([((v - mean) * sign).flatten() for _, v, mean, sign in stats]).std())
+            for m, _, mean, sign in stats:
+                scale = sign * spread[kind] / std
+                m.weight.mul_(scale[:, None, None, None])
+                m.bias.copy_(CLS_PRIOR_BIAS - scale * mean)
+    return model
+
+
+def zoo_pair(torch, np, models, name):
+    """(card model, CPU model) of ``name`` at 640, 80 classes, seed 0, the same spread head."""
+    model = spread_zoo_head(torch, np, models.get(name, num_classes=80, seed=0, device="cuda"))
+    cpu_model = models.get(name, num_classes=80, seed=0, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.net.state_dict().items()})
+    return model, cpu_model
+
+
+def phase_zoo(torch, np, nms_exact, matched_fraction, root):
+    """Phase 16: PP-YOLOE-S and YOLOX-S at 640 (published widths and depths, 80 classes, seed 0,
+    the spread head). Returns (K1 launches on the main paths, the largest K1-vs-plain difference)."""
+    t_phase = time.perf_counter()
+    launches, max_err = 0, 0.0
+    for name in ZOO_MODELS:
+        n, err = phase_zoo_predict(torch, np, nms_exact, matched_fraction, name)
+        launches, max_err = launches + n, max(max_err, err)
+        print(f"[16a-c] {name} seconds {time.perf_counter() - t_phase:.1f}")
+    n, err = phase_zoo_sliding_window(torch, np, nms_exact, matched_fraction)
+    launches, max_err = launches + n, max(max_err, err)
+    print(f"[16d] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_zoo_train(torch, np)
+    print(f"[16e] seconds {time.perf_counter() - t_phase:.1f}")
+    launches += phase_zoo_recipes(torch, np, nms_exact, root)
+    print(f"[16] K1 launches in phase 16's main paths: {launches}; phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, max_err
+
+
+def phase_zoo_predict(torch, np, nms_exact, matched_fraction, name):
+    """(a) fp32 predict() on the card against the CPU (and PP-YOLOE fused against unfused),
+    (b) fused bf16 predict_batch_tensor timing, (c) K1 on the captured candidates."""
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models import sg_model
+    from super_gradients_tpu_torch.ops import nms as nms_module
+
+    model, cpu_model = zoo_pair(torch, np, models, name)
+    logits = name.startswith("ppyoloe")
+    images = request_images(np, 3)
+    pil_image = Image.fromarray(request_images(np, 5)[1])
+    kw = dict(bf16=False, fuse_model=False, nms_mode="exact", conf=ZOO_CONF[name])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nms_exact.exact_nms_keep.launches = 0
+    try:
+        gpu = list(model.predict(images, **kw)) + list(model.predict(pil_image, **kw))
+        launches = nms_exact.exact_nms_keep.launches
+        cpu = list(cpu_model.predict(images, **kw)) + list(cpu_model.predict(pil_image, **kw))
+        fused = list(model.predict(images, **dict(kw, fuse_model=True))) if logits else gpu
+        with torch.inference_mode():  # the RepVGG re-parameterization on the card's forward
+            x = torch.rand((2, 3, 640, 640), generator=torch.Generator().manual_seed(6)).cuda()
+            unfused_out, fused_out = model.net(x), model.fuse().net(x)
+        fuse_errs = [float((getattr(fused_out, f) - getattr(unfused_out, f)).abs().max())
+                     for f in ("pred_scores", "pred_bboxes")]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    check(launches == 2, f"{name} predict launched K1 {launches} times, expected one a batch (2)")
+    check_predictions(np, gpu, 5, f"{name} fp32 predict")
+    fractions = [matched_fraction(g, c, 0.99) for g, c in zip(gpu, cpu)]
+    fused_fractions = [matched_fraction(f, g, 0.99) for f, g in zip(fused, gpu)]
+    print(f"[16a] {name} 640 fp32 predict GPU vs CPU (TF32 off, exact NMS, conf {ZOO_CONF[name]}), 4-image request + a "
+          f"PIL image: "
+          f"detections {[len(g) for g in gpu]} vs {[len(c) for c in cpu]}; matched fractions at IoU 0.99 "
+          f"{[round(f, 4) for f in fractions]}; fused vs unfused on the card: forward |difference| max "
+          f"{fuse_errs[0]:.3g} (scores), {fuse_errs[1]:.3g} px (boxes), predictions matched "
+          f"{[round(f, 4) for f in fused_fractions]}; K1 launches {launches}")
+    check(min(fractions) >= 0.99, f"{name} predict GPU vs CPU matched fractions {fractions}")
+    check(fuse_errs[0] <= ZOO_FUSE_TOL[0] and fuse_errs[1] <= ZOO_FUSE_TOL[1],
+          f"{name} fused forward differs from the unfused one by {fuse_errs}")
+    del cpu, cpu_model
+
+    max_err = 0.0
+    for b in (8, 32):
+        batch = torch.rand((b, 640, 640, 3), generator=torch.Generator().manual_seed(3)).cuda()
+        call = lambda: model.predict_batch_tensor(batch)  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = call()
+        out.num_detections.cpu()
+        dt = time.perf_counter() - t0
+        net = model._deploy_net(True, True)
+        x = batch.to(torch.bfloat16).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: net(x), iters=10)
+            o = net(x)
+            nms_call = lambda: nms_module.batched_nms(  # noqa: E731
+                o.pred_bboxes, o.cls_logits if logits else o.pred_scores, score_threshold=0.25, iou_threshold=0.7,
+                nms_top_k=1024, max_predictions=300, mode="exact", scores_are_logits=logits)
+            nms_ms = cuda_ms(nms_call, iters=20)
+        events, wall_ms = profiled(torch, call, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in events) / 1e3 / 5
+        print(f"[16b] {name} fused bf16 predict_batch_tensor b{b}: {b * iters / dt:.1f} img/s ({1e3 * dt / iters:.2f} "
+              f"ms/batch, host clock); forward {forward_ms:.2f} ms, batched_nms {nms_ms:.4f} ms (CUDA events); "
+              f"profiled: wall {wall_ms:.2f} ms a batch, device busy {busy_ms:.2f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        nms_args, nms_kwargs = capture_call(sg_model, "batched_nms", call)
+        check(nms_kwargs["scores_are_logits"] is logits, f"{name}: NMS on the wrong score map")
+        with torch.inference_mode():
+            (boxes, valid, t), _ = capture_call(nms_module, "exact_nms_keep",
+                                                lambda: nms_module.batched_nms(*nms_args, **nms_kwargs))
+            max_err = max(max_err, check_k1_equal(torch, nms_exact, f"{name} candidates b{b}", boxes, valid, t))
+            n_kept = nms_exact.exact_nms_keep(boxes, valid, t).sum(dim=1)
+            print(f"[16c] {name} b{b} candidates ({'logits' if logits else 'probability scores'}): K={boxes.shape[1]}, "
+                  f"valid per image {valid.sum(dim=1).tolist()}, kept per image {n_kept.tolist()}; K1 bit-equal to "
+                  f"the plain version")
+            time_k1(torch, nms_exact, f"{name} b{b} candidates", boxes, valid, t, phase="16c")
+        del batch, out, o, boxes, valid, nms_args, nms_kwargs
+    del model
+    torch.cuda.empty_cache()
+    return launches, max_err
+
+
+def phase_zoo_sliding_window(torch, np, nms_exact, matched_fraction):
+    """(d) SlidingWindowInferenceDetectionWrapper (tile 640, step 512) over YOLO-NAS-M and
+    PP-YOLOE-S on a seeded 1080x1920 image, GPU against CPU (fp32, TF32 off), one K1 launch an
+    image, timed; then the JAX-equal TypeError of SlidingWindowValidationCallback."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.inference.prediction_results import DetectionPrediction
+    from super_gradients_tpu_torch.inference import sliding_window
+    from super_gradients_tpu_torch.ops import nms as nms_module
+    from super_gradients_tpu_torch.training import callbacks
+
+    image = torch.rand((1080, 1920, 3), generator=torch.Generator().manual_seed(16))
+    image_gpu = image.cuda()
+    SlidingWindowInferenceDetectionWrapper = sliding_window.SlidingWindowInferenceDetectionWrapper
+    compute_tile_origins = sliding_window.compute_tile_origins
+    tiles = compute_tile_origins((1080, 1920), (640, 640), (512, 512))
+    check(len(tiles) == 8, f"{len(tiles)} tiles of a 1080x1920 image")
+    launches, max_err = 0, 0.0
+    for name in ("yolo_nas_m", "ppyoloe_s"):
+        if name == "yolo_nas_m":
+            model = zero_cls_bias(models.get(name, num_classes=80, seed=0, device="cuda"))
+            cpu_model = zero_cls_bias(models.get(name, num_classes=80, seed=0, device="cpu"))
+        else:
+            model, cpu_model = zoo_pair(torch, np, models, name)
+        wrapper, cpu_wrapper = (SlidingWindowInferenceDetectionWrapper(m) for m in (model, cpu_model))
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        nms_exact.exact_nms_keep.launches = 0
+        try:
+            got = wrapper.predict_image_tensor(image_gpu, bf16=False)
+            n = nms_exact.exact_nms_keep.launches
+            ref = cpu_wrapper.predict_image_tensor(image, bf16=False)
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+        check(n == 1, f"sliding window over {name} launched K1 {n} times, expected 1")
+        launches += n
+
+        def as_set(out):
+            k = int(out.num_detections[0])
+            return DetectionPrediction(bboxes_xyxy=out.boxes[0, :k].cpu().numpy(),
+                                       confidence=out.scores[0, :k].cpu().numpy(), labels=out.labels[0, :k].cpu().numpy())
+
+        g, c = as_set(got), as_set(ref)
+        frac = matched_fraction(g, c, 0.99)
+        check(len(g.labels) > 0 and frac >= 0.99, f"sliding window {name} GPU vs CPU: {frac} matched")
+        call = lambda: wrapper.predict_image_tensor(image_gpu)  # noqa: E731
+        whole_ms = cuda_ms(call, iters=5)
+        nms_args, nms_kwargs = capture_call(sliding_window, "batched_nms", call)
+        with torch.inference_mode():
+            (boxes, valid, t), _ = capture_call(nms_module, "exact_nms_keep",
+                                                lambda: nms_module.batched_nms(*nms_args, **nms_kwargs))
+            max_err = max(max_err, check_k1_equal(torch, nms_exact, f"sliding window {name}", boxes, valid, t))
+            nms_ms = cuda_ms(lambda: nms_module.batched_nms(*nms_args, **nms_kwargs), iters=10)
+            k1 = time_k1(torch, nms_exact, f"sliding window {name} candidates", boxes, valid, t, phase="16d")
+        print(f"[16d] {name} sliding window 1080x1920, {len(tiles)} tiles of 640 (step 512), {nms_args[0].shape[1]} "
+              f"anchors into one batched_nms: fp32 GPU vs CPU {len(g.labels)} vs {len(c.labels)} detections, "
+              f"{frac:.4f} matched at IoU 0.99; K1 launches {n}; bf16 predict_image_tensor {whole_ms:.2f} ms, its "
+              f"batched_nms {nms_ms:.4f} ms, K1 {k1['ms']:.4f} ms (CUDA events), valid candidates "
+              f"{int(valid.sum())} of {valid.shape[1]}")
+        if name == "yolo_nas_m":
+            batch = (torch.rand((2, 3, 640, 640), generator=torch.Generator().manual_seed(17)) * 255).to(torch.uint8)
+            ctx = callbacks.PhaseContext(model=model, valid_loader=[(batch, torch.zeros(2, 1, 5))])
+            try:
+                callbacks.SlidingWindowValidationCallback().on_validation_loader_end(ctx)
+            except TypeError as e:
+                check(str(e) == "'SlidingWindowInferenceDetectionWrapper' object is not callable", f"TypeError {e}")
+                print(f"[16d] SlidingWindowValidationCallback raises the JAX package's TypeError: {e}")
+            else:
+                check(False, "SlidingWindowValidationCallback ran without the JAX package's TypeError")
+        del model, cpu_model, wrapper, cpu_wrapper, boxes, valid, nms_args, nms_kwargs
+        torch.cuda.empty_cache()
+    return launches, max_err
+
+
+def phase_zoo_train(torch, np):
+    """(e) One fp32 SGD YOLOX-S step at b2 on the card and on the CPU, held to an fp64 CPU step
+    (phase 8's rule, the SimOTA assignment compared, then the fp64 one shared); the bf16 step at
+    b16 by part for YOLOX-S, and PP-YOLOE-S with ATSS and with TAL."""
+    import types
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model = models.get("yolox_s", num_classes=80, seed=0, device="cpu")
+        dataset = RandomDetectionDataset(num_samples=2, image_size=(640, 640), num_classes=80, max_boxes=120)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(2))))
+        runs = {}
+        for name, device, dtype in (("fp64 CPU", "cpu", torch.float64), ("fp32 CPU", "cpu", torch.float32),
+                                    ("fp32 GPU", "cuda", torch.float32)):
+            net = copy.deepcopy(cpu_model.net).to(device, dtype)
+            m = types.SimpleNamespace(net=net, device=torch.device(device))
+            x, t = images.to(device, dtype), targets.to(device, dtype)
+            if device == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            runs[name] = _one_step(torch, m, x, t, assign=runs["fp64 CPU"][0] if runs else None, base=COCO_YOLOX)
+            del net, m
+        fg64, gt64 = runs["fp64 CPU"][0].fg_mask, runs["fp64 CPU"][0].matched_gt
+        for name in ("fp32 CPU", "fp32 GPU"):
+            own = runs[name][0]
+            diff = int((own.fg_mask.cpu() != fg64).sum() + ((own.matched_gt.cpu() != gt64) & fg64).sum())
+            print(f"[16e] yolox_s {name}: {diff} anchors with another SimOTA foreground or gt than fp64 CPU "
+                  f"({int(fg64.sum())} foreground); all runs take the fp64 assignment")
+        ref_comps, ref_grads = runs["fp64 CPU"][1], runs["fp64 CPU"][2]
+        for key in ("iou", "obj", "cls", "num_fg", "loss"):
+            errs = {name: abs(runs[name][1][key] - ref_comps[key]) for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[16e] yolox_s {key} {ref_comps[key]:.6f} (fp64 CPU): GPU err {errs['fp32 GPU']:.3g}, "
+                  f"CPU err {errs['fp32 CPU']:.3g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-6 * abs(ref_comps[key]),
+                  f"yolox GPU fp32 {key} more than twice as far from fp64 as the CPU's")
+        for group in ("_backbone", "_head", ""):
+            keys = [k for k in ref_grads if k.startswith(group)]
+            norm = float(sum((ref_grads[k] ** 2).sum() for k in keys) ** 0.5)
+            errs = {name: float(sum(((runs[name][2][k] - ref_grads[k]) ** 2).sum() for k in keys) ** 0.5)
+                    for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[16e] yolox_s gradients {group or 'all'} (norm {norm:.4g}): GPU L2 err {errs['fp32 GPU']:.4g}, "
+                  f"CPU L2 err {errs['fp32 CPU']:.4g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-7 * norm,
+                  f"yolox GPU fp32 gradients ({group or 'all'}) more than twice as far from fp64 as the CPU's")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    del runs, cpu_model
+
+    b = 16
+    dataset = RandomDetectionDataset(num_samples=b, image_size=(640, 640), num_classes=80, max_boxes=120)
+    images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(b))))
+    images = images.cuda().contiguous(memory_format=torch.channels_last)
+    targets = targets.cuda()
+    for name, base, assigner in (("yolox_s", COCO_YOLOX, "SimOTA"), ("ppyoloe_s", COCO_PPYOLOE, "ATSS"),
+                                 ("ppyoloe_s", dict(COCO_PPYOLOE, criterion_params={"num_classes": 80,
+                                                                                    "use_static_assigner": False}),
+                                  "TAL")):
+        model = models.get(name, num_classes=80, seed=0, device="cuda")
+        step = Trainer("chip_smoke_zoo_timing").prepare(model, base, steps_per_epoch=100)
+
+        def run(events=None):
+            marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+            marks[0]()
+            out = step.forward(images)
+            marks[1]()
+            loss, _ = step.loss(out, targets)
+            marks[2]()
+            step.backward(loss)
+            marks[3]()
+            step.update()
+            marks[4]()
+            return loss
+
+        for _ in range(3):
+            run()
+        iters = 10
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+        for ev in events:
+            run(ev)
+        torch.cuda.synchronize()
+        parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+        step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+        with torch.no_grad():
+            out = step.forward(images)
+            assign_ms = cuda_ms(lambda: step.criterion.assign(out, targets), iters=10)
+        prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss = run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(bool(torch.isfinite(loss)), f"{name} {assigner} b{b} train loss not finite")
+        print(f"[16e] {name} ({assigner}) bf16 train step b{b}: {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.1f} img/s "
+              f"(CUDA events); forward {parts[0]:.2f}, loss {parts[1]:.2f} (of which the {assigner} assignment "
+              f"{assign_ms:.2f}, the losses {parts[1] - assign_ms:.2f}), backward {parts[2]:.2f}, optimizer+EMA "
+              f"{parts[3]:.2f} ms; profiled (device activity only): wall {wall_ms:.2f} ms/step, device busy "
+              f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak memory {peak:.2f} GiB")
+        del step, model, loss, out, prof_events
+        torch.cuda.empty_cache()
+    del images, targets
+
+
+def write_coco_layout(rf100_root, coco_root):
+    """A COCO2017-layout copy of phase 11's train split (``annotations/instances_train2017.json``
+    and ``images/train2017``)."""
+    import shutil
+
+    src = os.path.join(rf100_root, "synthetic", "train")
+    os.makedirs(os.path.join(coco_root, "annotations"))
+    shutil.copytree(src, os.path.join(coco_root, "images", "train2017"))
+    shutil.copy(os.path.join(src, "_annotations.coco.json"),
+                os.path.join(coco_root, "annotations", "instances_train2017.json"))
+
+
+def phase_zoo_recipes(torch, np, nms_exact, root):
+    """(f) train_from_recipe of roboflow_yolox and roboflow_ppyoloe on phase 11's dataset (2
+    epochs of b16, bf16, 8 workers), both stage switches cut to epoch 1; evaluate_checkpoint
+    held to a direct Trainer.evaluate, resume_experiment; then coco2017_train_ppyoloe with
+    multiscale over a COCO-layout copy. Returns K1's launches in the two runs."""
+    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer, callbacks, dataloaders
+    from super_gradients_tpu_torch.training.losses import PPYoloELoss, YoloXDetectionLoss
+    from super_gradients_tpu_torch.training.trainer import _to_device
+
+    data_root, ckpt_root = os.path.join(root, "rf100"), os.path.join(root, "ckpt")
+    n_boxes, n_crowd = make_rf100_dataset(np, data_root)
+    workers = min(8, os.cpu_count())
+    total = 0
+    for recipe, switch in (("roboflow_yolox", "YoloXTrainingStageSwitchCallback: {next_stage_start_epoch: 1}"),
+                           ("roboflow_ppyoloe", "PPYoloETrainingStageSwitchCallback: {static_assigner_end_epoch: 1}")):
+        cuts = [f"dataset_params.train_dataset_params.data_dir={data_root}",
+                f"dataset_params.val_dataset_params.data_dir={data_root}", "dataset_name=synthetic", "num_classes=80",
+                "epochs=2", "batch_size=16", "val_batch_size=16", f"num_workers={workers}",
+                f"ckpt_root_dir={ckpt_root}", "training_hyperparams.mixed_precision=True",
+                f"training_hyperparams.phase_callbacks=[{{{switch}}}]"]
+        if recipe == "roboflow_ppyoloe":
+            cuts.append("training_hyperparams.criterion_params.use_static_assigner=True")
+        cfg = config.load_recipe(recipe, overrides=cuts)
+        closed, flags = [], []
+        close = callbacks._close_multisample_transforms
+        calls = {cls: cls.__call__ for cls in (YoloXDetectionLoss, PPYoloELoss)}
+        callbacks._close_multisample_transforms = lambda loader: closed.append(close(loader)) or closed[-1]
+        YoloXDetectionLoss.__call__ = lambda self, *a: flags.append(self.use_l1) or calls[YoloXDetectionLoss](self, *a)
+        PPYoloELoss.__call__ = lambda self, *a: flags.append(self.use_static_assigner) or calls[PPYoloELoss](self, *a)
+        nms_exact.exact_nms_keep.launches = 0
+        t0 = time.perf_counter()
+        try:
+            _, trainer = train_from_recipe.main([f"--config-name={recipe}", *cuts])
+        finally:
+            callbacks._close_multisample_transforms = close
+            for cls, call in calls.items():
+                cls.__call__ = call
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = nms_exact.exact_nms_keep.launches
+        total += launches
+        history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+        check(launches == 2 * 2, f"K1 launched {launches} times in {recipe}, expected one a validation batch (4)")
+        check(len(history) == 2 and all(np.isfinite(history)), f"{recipe} train losses {history}")
+        check(len(valid) == 2 and all(np.isfinite(list(v.values())).all() for v in valid), f"{recipe} validation {valid}")
+        first, last = (True, False) if recipe == "roboflow_ppyoloe" else (False, True)
+        check(flags[:4] == [first] * 4 and flags[-1] == last and flags == sorted(flags, reverse=first),
+              f"{recipe}: the stage switch did not act at epoch 1 ({flags})")
+        if recipe == "roboflow_yolox":
+            check(closed == [2] and trainer.training_params["criterion_params"]["use_l1"] is True,
+                  f"YOLOX stage switch closed {closed} transforms")
+        print(f"[16f] recipe {recipe} ({cfg['architecture']}) through train_from_recipe.main on phase 11's dataset "
+              f"(64 train + 32 valid PNGs, {n_boxes} boxes, {n_crowd} iscrowd): 2 epochs x "
+              f"{trainer.train_state.step // 2} steps "
+              f"of 16 at 640 (bf16), {workers} workers, {seconds:.1f} s; K1 launches {launches}; losses {history}; "
+              f"validation {json.dumps(valid)}; the stage switch at epoch 1: "
+              f"{'mosaic and mixup closed, use_l1 on' if recipe == 'roboflow_yolox' else 'ATSS -> TAL'} "
+              f"(criterion flags by call {flags})")
+
+        _, resumed = Trainer.resume_experiment(recipe, ckpt_root_dir=ckpt_root)
+        check(resumed.train_loss_history == [] and resumed.train_state.step == trainer.train_state.step,
+              f"{recipe}: resume_experiment took a step")
+        best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
+        best = torch.load(best_path, map_location="cpu", weights_only=True)
+        evaluated = Trainer.evaluate_checkpoint(recipe, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
+
+        def differences(a, b):  # |a - b| of each metric, of Loss relative to b
+            return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
+
+        model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], arch_params=cfg.get("arch_params"),
+                           checkpoint_path=best_path)
+        val_loader = Trainer._loader_from_cfg(cfg, "val")
+        direct = Trainer(f"{recipe}_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
+                                                                               cfg["training_hyperparams"])
+        diffs = differences(evaluated, direct)
+        model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
+        fault = differences(Trainer(f"{recipe}_fault", ckpt_root_dir=ckpt_root).evaluate(
+            model, val_loader, cfg["training_hyperparams"]), direct)
+        close_loader(val_loader)
+        print(f"[16f] {recipe} resume_experiment: no step; evaluate_checkpoint(ckpt_best, epoch {best['epoch']}): "
+              f"{json.dumps(evaluated)}; |difference| to a direct Trainer.evaluate (Loss relative): {json.dumps(diffs)}, "
+              f"limit {RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}")
+        check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"{recipe} evaluate_checkpoint differs: {diffs}")
+        check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the {recipe} gate: {fault}")
+        del trainer, resumed, model, best
+        torch.cuda.empty_cache()
+
+    coco_root = os.path.join(root, "coco")
+    write_coco_layout(data_root, coco_root)
+    loader = dataloaders.get("coco2017_train_ppyoloe", dataset_params={"data_dir": coco_root, "batch_size": 16,
+                                                                     "multiscale": True})
+    shapes = []
+    for images, targets in loader:
+        on_card, targets = _to_device(images, targets, torch.device("cuda"), loader.max_value)
+        check(on_card.dtype == torch.float32 and 0.0 <= float(on_card.min()) and float(on_card.max()) <= 1.0 + 1e-6,
+              f"multi-scale batch not in [0, 1]: {float(on_card.min())}, {float(on_card.max())}")
+        shapes.append(tuple(on_card.shape))
+    check([s[2] for s in shapes] == [512, 544, 576, 608], f"multi-scale sizes {shapes}")
+    print(f"[16f] coco2017_train_ppyoloe (multiscale) over a COCO-layout copy of the train split: batches on the card "
+          f"{shapes}")
+    return total
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -2422,6 +2951,9 @@ def main():
         phase_classification(torch, np, nms_exact, root)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as root:
         phase_segmentation(torch, np, nms_exact, root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
+        zoo_launches, zoo_err = phase_zoo(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou), root)
+    max_err = max(max_err, zoo_err)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -2429,7 +2961,7 @@ def main():
     k1 = timings[8, 1024]  # the predict path's shape, every candidate valid
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches,
+        "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches + zoo_launches,
         "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)

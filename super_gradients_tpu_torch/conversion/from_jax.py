@@ -1,11 +1,13 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
-``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, YOLO-NAS-POSE, the
-ResNet family, STDC classification and the STDC and PP-LiteSeg segmentation models).
+``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
+YOLO-NAS-POSE, the ResNet family, STDC classification and the STDC and PP-LiteSeg
+segmentation models).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
-of those rules (``YOLO_NAS_RULES``, ``YOLO_NAS_POSE_RULES``, ``RESNET_RULES``,
-``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout transforms:
+of those rules (``YOLO_NAS_RULES``, ``PPYOLOE_RULES``, ``YOLOX_RULES``, ``YOLO_NAS_POSE_RULES``,
+``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``_GENERIC_RULES``,
+``_LEAF_MAP``) and inverts the layout transforms:
 
 - conv kernel HWIO -> OIHW;
 - dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
@@ -53,6 +55,55 @@ YOLO_NAS_RULES: Rules = (
     (r"(head\d\.stem)\.bn", r"\1.seq.bn"),
     (r"(head\d\.(?:cls|reg)_convs)\.conv", r"\1.0.seq.conv"),
     (r"(head\d\.(?:cls|reg)_convs)\.bn", r"\1.0.seq.bn"),
+)
+
+# PP-YOLOE (copy of the JAX package's PPYOLOE_RULES): ConvBNAct nests conv and BN under
+# `seq`, the RepVGG branches are Sequentials, the identity BN (no PP-YOLOE block has one) is
+# `no_conv_branch`
+PPYOLOE_RULES: Rules = (
+    (r"(?<!seq)\.(conv|bn)$", r".seq.\1"),
+    (r"branch_3x3_conv", "branch_3x3.conv"),
+    (r"branch_3x3_bn", "branch_3x3.bn"),
+    (r"branch_1x1_conv", "branch_1x1.conv"),
+    (r"branch_1x1_bn", "branch_1x1.bn"),
+    (r"identity_bn", "no_conv_branch"),
+    (r"convs_spp", "convs.spp"),
+    (r"stem_conv(\d)", r"stem.conv\1"),
+    (r"attn\.fc", "attn.project"),
+    (r"stem_(cls|reg)_(\d+)_fc", r"stem_\1.\2.fc"),
+    (r"stem_(cls|reg)_(\d+)_conv", r"stem_\1.\2.conv"),
+)
+
+# YOLOX (copy of the JAX package's YOLOX_RULES): the semantic flax names onto the flat
+# indexed `_modules_list`s of the original backbone and PAFPN
+YOLOX_RULES: Rules = (
+    (r"^backbone\.stem", "_backbone._modules_list.0"),
+    (r"^backbone\.dark2_conv", "_backbone._modules_list.1"),
+    (r"^backbone\.dark2_csp", "_backbone._modules_list.2"),
+    (r"^backbone\.dark3_conv", "_backbone._modules_list.3"),
+    (r"^backbone\.dark3_csp", "_backbone._modules_list.4"),
+    (r"^backbone\.dark4_conv", "_backbone._modules_list.5"),
+    (r"^backbone\.dark4_csp", "_backbone._modules_list.6"),
+    (r"^backbone\.dark5_conv", "_backbone._modules_list.7"),
+    (r"^backbone\.dark5_spp", "_backbone._modules_list.8"),
+    (r"^backbone\.dark5_csp", "_backbone._modules_list.9"),
+    (r"^lateral5", "_head._modules_list.0"),
+    (r"^fpn_c4", "_head._modules_list.3"),
+    (r"^lateral4", "_head._modules_list.4"),
+    (r"^fpn_c3", "_head._modules_list.7"),
+    (r"^down3", "_head._modules_list.8"),
+    (r"^pan_c4", "_head._modules_list.10"),
+    (r"^down4", "_head._modules_list.11"),
+    (r"^pan_c5", "_head._modules_list.13"),
+    (r"^head(\d)_stem", r"_head._modules_list.14.stems.\1"),
+    (r"^head(\d)_cls1", r"_head._modules_list.14.cls_convs.\1.0"),
+    (r"^head(\d)_cls2", r"_head._modules_list.14.cls_convs.\1.1"),
+    (r"^head(\d)_reg1", r"_head._modules_list.14.reg_convs.\1.0"),
+    (r"^head(\d)_reg2", r"_head._modules_list.14.reg_convs.\1.1"),
+    (r"^head(\d)_cls_pred", r"_head._modules_list.14.cls_preds.\1"),
+    (r"^head(\d)_reg_pred", r"_head._modules_list.14.reg_preds.\1"),
+    (r"^head(\d)_obj_pred", r"_head._modules_list.14.obj_preds.\1"),
+    (r"\.b(\d+)_cv", r".bottlenecks.\1.cv"),
 )
 
 # YOLO-NAS-POSE: the pose heads add ConvBNReLU stems and a `pose_convs` Sequential, and

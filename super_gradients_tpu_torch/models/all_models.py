@@ -1,5 +1,5 @@
 """Architecture registrations of the port (the ResNet, STDC classification, YOLO-NAS,
-YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
+PP-YOLOE, YOLOX, YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
 ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
@@ -19,13 +19,21 @@ from super_gradients_tpu_torch.models.class_names import (
     COCO_POSE_EDGE_LINKS,
     COCO_POSE_KEYPOINTS,
 )
+from super_gradients_tpu_torch.models.detection.customizable_detector import yolo_nas_config_from_arch_params
+from super_gradients_tpu_torch.models.detection.pp_yolo_e import (
+    PPYoloE,
+    ppyoloe_l_config,
+    ppyoloe_m_config,
+    ppyoloe_s_config,
+    ppyoloe_x_config,
+)
 from super_gradients_tpu_torch.models.detection.yolo_nas import (
     YoloNAS,
     yolo_nas_l_config,
     yolo_nas_m_config,
-    yolo_nas_config_from_arch_params,
     yolo_nas_s_config,
 )
+from super_gradients_tpu_torch.models.detection.yolox import YoloX, YoloXConfig, yolox_config
 from super_gradients_tpu_torch.models.model_factory import ModelSpec
 from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
     YoloNASPose,
@@ -113,6 +121,18 @@ def stdc2_classification(**kw):
 _FUSED = {"none": False, "full": True}  # the JAX package's `fused` values that the port builds
 
 
+def _detection_spec(net, nc: int, cfg, image_size: int) -> ModelSpec:
+    """A detector at ``image_size`` with the YOLO-NAS COCO processing (the JAX zoo gives it PP-YOLOE and YOLOX too)."""
+    return ModelSpec(
+        net=net,
+        num_classes=nc,
+        input_hw=(image_size, image_size),
+        config=cfg,
+        processing=default_yolo_nas_coco_processing(image_size),
+        class_names=COCO_DETECTION_CLASSES_LIST if nc == 80 else None,
+    )
+
+
 def _yolo_nas_spec(config_fn, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:
     """The variant's config, or the one an arch_params module-spec tree describes
     (``common/config.py::load_arch_params``)."""
@@ -123,14 +143,7 @@ def _yolo_nas_spec(config_fn, num_classes=None, arch_params=None, image_size: in
         cfg = dataclasses.replace(yolo_nas_config_from_arch_params(arch_params, nc), fused=fused)
     else:
         cfg = config_fn(num_classes=nc, fused=fused)
-    return ModelSpec(
-        net=YoloNAS(cfg),
-        num_classes=nc,
-        input_hw=(image_size, image_size),
-        config=cfg,
-        processing=default_yolo_nas_coco_processing(image_size),
-        class_names=COCO_DETECTION_CLASSES_LIST if nc == 80 else None,
-    )
+    return _detection_spec(YoloNAS(cfg), nc, cfg, image_size)
 
 
 @register_model("yolo_nas_s")
@@ -146,6 +159,94 @@ def yolo_nas_m(**kw):
 @register_model("yolo_nas_l")
 def yolo_nas_l(**kw):
     return _yolo_nas_spec(yolo_nas_l_config, **kw)
+
+
+def _ppyoloe_spec(config_fn, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:
+    """A PP-YOLOE variant; ``arch_params`` ``width_mult`` / ``depth_mult``
+    (``recipes/arch_params/ppyoloe_*_arch_params.yaml``) reshape the whole net, ``fused``
+    builds it in deploy form."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 80)
+    cfg = config_fn(num_classes=nc, fused=_FUSED[arch_params.get("fused", "none")])
+    if "width_mult" in arch_params or "depth_mult" in arch_params:
+        cfg = dataclasses.replace(cfg, width_mult=float(arch_params.get("width_mult", cfg.width_mult)),
+                                  depth_mult=float(arch_params.get("depth_mult", cfg.depth_mult)))
+    return _detection_spec(PPYoloE(cfg), nc, cfg, image_size)
+
+
+@register_model("ppyoloe_s")
+def ppyoloe_s(**kw):
+    return _ppyoloe_spec(ppyoloe_s_config, **kw)
+
+
+@register_model("ppyoloe_m")
+def ppyoloe_m(**kw):
+    return _ppyoloe_spec(ppyoloe_m_config, **kw)
+
+
+@register_model("ppyoloe_l")
+def ppyoloe_l(**kw):
+    return _ppyoloe_spec(ppyoloe_l_config, **kw)
+
+
+@register_model("ppyoloe_x")
+def ppyoloe_x(**kw):
+    return _ppyoloe_spec(ppyoloe_x_config, **kw)
+
+
+def _yolox_spec(variant, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:
+    """A YOLOX variant; ``arch_params`` ``depth_mult_factor`` / ``width_mult_factor``
+    (``recipes/arch_params/yolox_*_arch_params.yaml``) reshape the whole net."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 80)
+    cfg = yolox_config(variant, nc)
+    if "depth_mult_factor" in ap or "width_mult_factor" in ap:
+        cfg = dataclasses.replace(cfg, depth=float(ap.get("depth_mult_factor", cfg.depth)),
+                                  width=float(ap.get("width_mult_factor", cfg.width)))
+    return _detection_spec(YoloX(cfg), nc, cfg, image_size)
+
+
+@register_model("yolox_n")
+def yolox_n(**kw):
+    return _yolox_spec("yolox_n", **kw)
+
+
+@register_model("yolox_t")
+def yolox_t(**kw):
+    return _yolox_spec("yolox_t", **kw)
+
+
+@register_model("yolox_s")
+def yolox_s(**kw):
+    return _yolox_spec("yolox_s", **kw)
+
+
+@register_model("yolox_m")
+def yolox_m(**kw):
+    return _yolox_spec("yolox_m", **kw)
+
+
+@register_model("yolox_l")
+def yolox_l(**kw):
+    return _yolox_spec("yolox_l", **kw)
+
+
+@register_model("custom_yolox")
+def custom_yolox(num_classes=None, arch_params=None, image_size: int = 640):
+    """YOLOX of any ``depth_mult`` / ``width_mult`` (or ``depth`` / ``width``), 1.0 by default."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 80)
+    cfg = YoloXConfig(num_classes=nc, depth=ap.get("depth_mult", ap.get("depth", 1.0)),
+                      width=ap.get("width_mult", ap.get("width", 1.0)))
+    return _detection_spec(YoloX(cfg), nc, cfg, image_size)
+
+
+@register_model("yolox_x")
+def yolox_x(num_classes=None, arch_params=None, **kw):
+    """YOLOX-X (depth 1.33, width 1.25) at 640, whatever ``image_size`` says, as in the JAX zoo."""
+    nc = num_classes or (arch_params or {}).get("num_classes", 80)
+    cfg = YoloXConfig(num_classes=nc, depth=1.33, width=1.25)
+    return _detection_spec(YoloX(cfg), nc, cfg, 640)
 
 
 def _pose_spec(config_fn, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:

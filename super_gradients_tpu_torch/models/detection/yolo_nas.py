@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -85,60 +85,6 @@ class YoloNASConfig:
     bn_momentum: float = 0.03
     grid_cell_offset: float = 0.5
     fused: bool = False  # every QARepVGG block built in deploy form
-
-
-def _spec_params(spec) -> Dict:
-    """The parameters of a one-key ``{ModuleName: params}`` spec (a bare name has none)."""
-    if isinstance(spec, str):
-        return {}
-    ((_, params),) = spec.items()
-    return dict(params or {})
-
-
-def yolo_nas_config_from_arch_params(arch_params: Mapping, num_classes: Optional[int] = None) -> YoloNASConfig:
-    """A :class:`YoloNASConfig` from an arch_params module-spec tree
-    (``recipes/arch_params/yolo_nas_*_arch_params.yaml``: ``backbone: {NStageBackbone:
-    {stem, stages, context_module}}``, ``neck: {YoloNASPANNeckWithC2: {neck1..4}}``,
-    ``heads: {NDFLHeads: {heads_list}}``), read as the JAX package reads it."""
-    bb = _spec_params(arch_params["backbone"])
-    stem = _spec_params(bb["stem"])
-    spp = _spec_params(bb["context_module"])
-    neck = _spec_params(arch_params["neck"])
-    heads = _spec_params(arch_params["heads"]) if "heads" in arch_params else {}
-
-    def stage(p):
-        return StageCfg(out_channels=p["out_channels"], num_blocks=p["num_blocks"], hidden_channels=p["hidden_channels"],
-                        concat_intermediates=bool(p.get("concat_intermediates", False)),
-                        act=p.get("activation_type", "relu"))
-
-    def up(p):
-        return UpStageCfg(out_channels=p["out_channels"], num_blocks=p["num_blocks"], hidden_channels=p["hidden_channels"],
-                          width_mult=float(p.get("width_mult", 1.0)), depth_mult=float(p.get("depth_mult", 1.0)),
-                          reduce_channels=bool(p.get("reduce_channels", True)), act=p.get("activation_type", "relu"))
-
-    def down(p):
-        return DownStageCfg(out_channels=p["out_channels"], num_blocks=p["num_blocks"],
-                            hidden_channels=p["hidden_channels"], width_mult=float(p.get("width_mult", 1.0)),
-                            depth_mult=float(p.get("depth_mult", 1.0)), act=p.get("activation_type", "relu"))
-
-    def head(p):
-        return HeadCfg(inter_channels=p["inter_channels"], width_mult=float(p["width_mult"]), stride=p["stride"],
-                       first_conv_group_size=int(p.get("first_conv_group_size", 0)))
-
-    return YoloNASConfig(
-        stem_channels=stem["out_channels"],
-        stages=tuple(stage(_spec_params(s)) for s in bb["stages"]),
-        spp_channels=spp["output_channels"],
-        spp_k=tuple(spp.get("k", (5, 9, 13))),
-        neck1=up(_spec_params(neck["neck1"])), neck2=up(_spec_params(neck["neck2"])),
-        neck3=down(_spec_params(neck["neck3"])), neck4=down(_spec_params(neck["neck4"])),
-        heads=tuple(head(_spec_params(h)) for h in heads.get("heads_list", [])),
-        num_classes=num_classes or heads.get("num_classes") or 80,
-        reg_max=int(heads.get("reg_max", 16)),
-        in_channels=int(arch_params.get("in_channels", 3)),
-        bn_eps=float(arch_params.get("bn_eps", 1e-3)),
-        bn_momentum=float(arch_params.get("bn_momentum", 0.03)),
-    )
 
 
 def _num_blocks(n: int, depth_mult: float) -> int:
@@ -309,6 +255,7 @@ class NStageBackbone(nn.Module):
             cin = stage.out_channels
         self.num_stages = len(cfg.stages)
         self.context_module = SPP(cin, cfg.spp_channels, cfg.spp_k, "relu", cfg.bn_eps, cfg.bn_momentum)
+        self.out_channels = tuple(s.out_channels for s in cfg.stages[:3]) + (cfg.spp_channels,)
 
     def forward(self, x: torch.Tensor):
         x = self.stem(x)

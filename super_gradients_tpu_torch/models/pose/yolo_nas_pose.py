@@ -24,6 +24,10 @@ from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from super_gradients_tpu_torch.models.detection.customizable_detector import (
+    parse_module_spec,
+    yolo_nas_config_from_arch_params,
+)
 from super_gradients_tpu_torch.models.detection.yolo_nas import (
     DownStageCfg,
     NStageBackbone,
@@ -31,9 +35,7 @@ from super_gradients_tpu_torch.models.detection.yolo_nas import (
     UpStageCfg,
     YoloNASConfig,
     YoloNASPANNeckWithC2,
-    _spec_params,
     reset_yolo_nas_parameters,
-    yolo_nas_config_from_arch_params,
     yolo_nas_l_config,
     yolo_nas_m_config,
     yolo_nas_s_config,
@@ -242,11 +244,11 @@ def yolo_nas_pose_config_from_arch_params(arch_params: Mapping, num_joints: Opti
     ``NStageBackbone`` / ``YoloNASPANNeckWithC2`` specs, then ``heads:
     {YoloNASPoseNDFLHeads: {heads_list}}``), read as the JAX package reads it."""
     base = yolo_nas_config_from_arch_params({k: v for k, v in arch_params.items() if k != "heads"}, 1)
-    hspec = _spec_params(arch_params["heads"]) if "heads" in arch_params else {}
+    hspec = parse_module_spec(arch_params["heads"])[1] if "heads" in arch_params else {}
     nj = num_joints or hspec.get("num_classes") or 17
     heads = []
     for entry in hspec.get("heads_list", []):
-        hp = _spec_params(entry)
+        hp = parse_module_spec(entry)[1]
         heads.append(PoseHeadCfg(
             bbox_inter_channels=int(hp["bbox_inter_channels"]),
             pose_inter_channels=int(hp["pose_inter_channels"]),

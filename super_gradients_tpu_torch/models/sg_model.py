@@ -32,7 +32,8 @@ from super_gradients_tpu_torch.inference.prediction_results import (
 )
 from super_gradients_tpu_torch.inference.processing import Processing
 from super_gradients_tpu_torch.inference.video import includes_video_extension, lazy_load_video
-from super_gradients_tpu_torch.modules.blocks import QARepVGGBlock
+from super_gradients_tpu_torch.models.detection.yolo_nas import YoloNASOutputs
+from super_gradients_tpu_torch.modules.blocks import QARepVGGBlock, RepVGGBlock
 from super_gradients_tpu_torch.ops.nms import NMSOutput, PoseNMSOutput, batched_nms, batched_pose_nms
 
 
@@ -66,6 +67,10 @@ class SgModel:
         self._processing = processing
         self._class_names = class_names
         self._deploy_nets: Dict[Tuple[bool, bool], nn.Module] = {}  # derived from net's weights
+
+    @property
+    def class_names(self) -> Optional[List[str]]:
+        return self._class_names
 
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
@@ -104,13 +109,14 @@ class SgModel:
         self._deploy_nets.clear()
 
     def fuse(self) -> "SgModel":
-        """A NEW model of the same task whose every QARepVGG block is re-parameterized
-        to its deploy form (one 3x3 conv); this model is left as it is."""
+        """A NEW model of the same task whose every QARepVGG and RepVGG block is
+        re-parameterized to its deploy form (one 3x3 conv); this model is left as it is.
+        A config without ``fused`` (YOLOX: no such blocks) returns this model."""
         if getattr(self.config, "fused", True):
             return self
         net = copy.deepcopy(self.net)
         for module in net.modules():
-            if isinstance(module, QARepVGGBlock):
+            if isinstance(module, (QARepVGGBlock, RepVGGBlock)):
                 module.fuse_()
         fused = copy.copy(self)
         fused.name = self.name + "_fused"
@@ -174,12 +180,15 @@ class DetectionModel(SgModel):
         # an NHWC tensor permuted to NCHW is already in channels_last memory order
         x = images.to(self.device, torch.bfloat16 if bf16 else torch.float32).permute(0, 3, 1, 2)
         outputs = net(x)
-        # YOLO-NAS scores are sigmoid(cls_logits): NMS prefilters on the logits and
-        # applies the sigmoid to the gathered candidates only (see ops/nms.py)
+        # YoloNASOutputs (YOLO-NAS, PP-YOLOE) score sigmoid(cls_logits): NMS prefilters on
+        # the logits and applies the sigmoid to the gathered candidates only (see
+        # ops/nms.py); every other output (YOLOX's obj * cls product) suppresses on its
+        # score map, as the JAX predict program chooses by the output's type
+        use_logits = isinstance(outputs, YoloNASOutputs)
         return batched_nms(
-            outputs.pred_bboxes, outputs.cls_logits, score_threshold=conf, iou_threshold=iou, nms_top_k=nms_top_k,
-            max_predictions=max_predictions, multi_label=multi_label, class_agnostic=class_agnostic, mode=nms_mode,
-            prefilter=prefilter, scores_are_logits=True,
+            outputs.pred_bboxes, outputs.cls_logits if use_logits else outputs.pred_scores, score_threshold=conf,
+            iou_threshold=iou, nms_top_k=nms_top_k, max_predictions=max_predictions, multi_label=multi_label,
+            class_agnostic=class_agnostic, mode=nms_mode, prefilter=prefilter, scores_are_logits=use_logits,
         )
 
     def predict(

@@ -6,9 +6,9 @@ JAX converter's name rules map the JAX variables onto these ``state_dict`` keys.
 Padding is the symmetric ``k // 2`` of torch's autopad. BatchNorm takes the
 torch momentum convention (the JAX package stores ``1 - momentum``).
 
-QARepVGG re-parameterization is a method that fuses one block in place
-(:meth:`QARepVGGBlock.fuse_`), with the math of the JAX ``fuse_qarepvgg_params``
-written for OIHW kernels.
+QARepVGG and RepVGG re-parameterization is a method that fuses one block in place
+(:meth:`QARepVGGBlock.fuse_`, :meth:`RepVGGBlock.fuse_`), with the math of the JAX
+``fuse_qarepvgg_params`` / ``fuse_repvgg_params`` written for OIHW kernels.
 """
 
 from __future__ import annotations
@@ -49,12 +49,13 @@ def _bn(channels: int, eps: float, momentum: float) -> nn.BatchNorm2d:
 
 
 class ConvBNAct(nn.Module):
-    """Conv2d (no bias, padding k // 2) -> BatchNorm -> activation."""
+    """Conv2d (no bias, padding k // 2 unless given) -> BatchNorm -> activation."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3, stride: int = 1, act="relu",
-                 bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1, padding: Optional[int] = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, bias=False)
+        padding = kernel // 2 if padding is None else padding
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel, stride, padding, bias=False)
         self.bn = _bn(out_channels, bn_eps, bn_momentum)
         self.act = get_activation(act)
 
@@ -63,19 +64,21 @@ class ConvBNAct(nn.Module):
 
 
 class ConvBNReLU(nn.Module):
-    """The same block with its layers under ``seq`` (the reference ``ConvBNReLU``,
-    used by the detection heads: ``heads.head1.stem.seq.conv``, and by the STDC and
-    PP-LiteSeg segmentation models, some without the BN or without the ReLU)."""
+    """The same block with its layers under ``seq`` (the reference ``ConvBNReLU`` /
+    ``ConvBNAct``, used by the detection heads: ``heads.head1.stem.seq.conv``, by the STDC
+    and PP-LiteSeg segmentation models, some without the BN or without the ReLU, and with
+    ``act="silu"`` by PP-YOLOE)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
-                 stride: int = 1, groups: int = 1, use_normalization: bool = True, use_activation: bool = True):
+                 stride: int = 1, groups: int = 1, use_normalization: bool = True, use_activation: bool = True,
+                 act="relu"):
         super().__init__()
         layers = OrderedDict(conv=nn.Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, groups=groups,
                                             bias=False))
         if use_normalization:
             layers["bn"] = _bn(out_channels, bn_eps, bn_momentum)
         if use_activation:
-            layers["act"] = nn.ReLU()
+            layers["act"] = get_activation(act)
         self.seq = nn.Sequential(layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -175,6 +178,55 @@ class QARepVGGBlock(nn.Module):
         for name in ("branch_3x3", "branch_1x1", "alpha", "post_bn"):
             if hasattr(self, name):
                 delattr(self, name)
+        self.rbr_reparam = conv
+        self.fused = True
+        return self
+
+
+class RepVGGBlock(nn.Module):
+    """Classic RepVGG block (reference ``modules/repvgg_block.py``), as PP-YOLOE's
+    ``CSPResNetBasicBlock`` uses it: ``branch_3x3`` (conv + BN) plus ``branch_1x1`` (conv +
+    BN), summed, then the activation. ``fused=True`` builds the deploy form, one
+    ``rbr_reparam`` 3x3 conv with bias; :meth:`fuse_` turns an unfused block into it in
+    place. The identity branch, groups, dilation and squeeze-excitation of the JAX block are
+    not ported: no PP-YOLOE block uses them.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1, act="relu", bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1, fused: bool = False):
+        super().__init__()
+        self.in_channels, self.out_channels, self.stride = in_channels, out_channels, stride
+        self.fused = fused
+        self.act = get_activation(act)
+        if fused:
+            self.rbr_reparam = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=True)
+            return
+        self.branch_3x3 = nn.Sequential(OrderedDict(
+            conv=nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False),
+            bn=_bn(out_channels, bn_eps, bn_momentum),
+        ))
+        self.branch_1x1 = nn.Sequential(OrderedDict(
+            conv=nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False),
+            bn=_bn(out_channels, bn_eps, bn_momentum),
+        ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self.act(self.rbr_reparam(x))
+        return self.act(self.branch_3x3(x) + self.branch_1x1(x))
+
+    @torch.no_grad()
+    def fuse_(self) -> "RepVGGBlock":
+        """Re-parameterize this block in place into its deploy form."""
+        if self.fused:
+            return self
+        k3, b3 = _fuse_bn(self.branch_3x3.conv.weight, None, self.branch_3x3.bn)
+        k1, b1 = _fuse_bn(nn.functional.pad(self.branch_1x1.conv.weight, (1, 1, 1, 1)), None, self.branch_1x1.bn)
+        conv = nn.Conv2d(self.in_channels, self.out_channels, 3, self.stride, 1, bias=True)
+        conv = conv.to(device=k3.device, dtype=k3.dtype)
+        conv.weight.copy_(k3 + k1)
+        conv.bias.copy_(b3 + b1)
+        del self.branch_3x3, self.branch_1x1
         self.rbr_reparam = conv
         self.fused = True
         return self

@@ -28,6 +28,16 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-9) -> to
     return inter / (union + eps)
 
 
+def elementwise_iou(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Aligned IoU: ``[..., 4]`` and ``[..., 4]`` of the same shape -> ``[...]``."""
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(boxes1) + box_area(boxes2) - inter
+    return inter / (union + eps)
+
+
 def batch_distance2bbox(points: torch.Tensor, distance: torch.Tensor) -> torch.Tensor:
     """Decode (l, t, r, b) distances from anchor points ``[..., A, 2]`` into xyxy."""
     lt, rb = distance[..., :2], distance[..., 2:]

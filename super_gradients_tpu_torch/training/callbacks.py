@@ -3,9 +3,10 @@
 ``Trainer.train`` calls a :class:`CallbackHandler`'s ``on_*`` events at the same
 points of its loop as the JAX trainer, with one mutable :class:`PhaseContext`.
 Ported: the event protocol, ``EarlyStop``, ``TimerCallback``, ``LRCallbackBase``,
-``ProfilerCallback`` (on ``torch.profiler``), ``PPYoloETrainingStageSwitchCallback``
-and the detection and segmentation visualization callbacks, which draw a batch's
-predictions (``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
+``ProfilerCallback`` (on ``torch.profiler``), ``PPYoloETrainingStageSwitchCallback``,
+``YoloXTrainingStageSwitchCallback``, ``SlidingWindowValidationCallback`` and the
+detection and segmentation visualization callbacks, which draw a batch's predictions
+(``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
 package registers beyond these are listed in :data:`NOT_PORTED` with their ROADMAP
 item; resolving one raises ``KeyError``.
 """
@@ -29,9 +30,6 @@ logger = logging.getLogger(__name__)
 
 NOT_PORTED = {
     "ModelConversionCheckCallback": "ROADMAP.md queue 1, 'Deployment and scale-out' (export)",
-    # detection-only: it tiles through inference/sliding_window.py, whose batched_nms runs K1
-    "SlidingWindowValidationCallback": "ROADMAP.md queue 1, 'Predict-path leftovers' (sliding-window validation)",
-    "YoloXTrainingStageSwitchCallback": "ROADMAP.md queue 1, 'Breadth' (YOLOX loss)",
 }
 
 
@@ -299,6 +297,44 @@ class LRLoggingCallback(Callback):
             context.metrics_dict["lr"] = context.lr
 
 
+def _close_multisample_transforms(loader) -> int:
+    """Set ``prob = 0`` on the mosaic / mixup transforms of a loader's dataset (the
+    reference's no-augmentation last epochs). Returns the count closed. Persistent
+    loader workers hold copies of the dataset made when they started, so the loader
+    restarts them (``DataLoader.restart_workers``) for the next epoch to see the change."""
+    ds = getattr(loader, "dataset", None)
+    compose = getattr(ds, "transforms", None)
+    tlist = getattr(compose, "transforms", None)
+    if not tlist:
+        return 0
+    n = 0
+    for t in tlist:
+        if type(t).__name__ in ("DetectionMosaic", "DetectionMixup", "KeypointsMosaic", "KeypointsMixup") and hasattr(t, "prob"):
+            t.prob = 0.0
+            n += 1
+    if n and hasattr(loader, "restart_workers"):
+        loader.restart_workers()
+    return n
+
+
+@register_callback("YoloXTrainingStageSwitchCallback")
+class YoloXTrainingStageSwitchCallback(Callback):
+    """At ``next_stage_start_epoch``: close mosaic / mixup and turn on the extra L1
+    regression term of ``YoloXDetectionLoss`` (the Trainer rebuilds its criterion
+    with ``use_l1=True``)."""
+
+    def __init__(self, next_stage_start_epoch: int = 285):
+        self.next_stage_start_epoch = next_stage_start_epoch
+        self._done = False
+
+    def on_train_loader_start(self, context: PhaseContext):
+        if not self._done and context.epoch >= self.next_stage_start_epoch:
+            n = _close_multisample_transforms(context.train_loader)
+            context.update_criterion_params(use_l1=True)
+            logger.info(f"YoloX stage switch at epoch {context.epoch}: closed {n} multi-sample transforms, use_l1=True")
+            self._done = True
+
+
 @register_callback("PPYoloETrainingStageSwitchCallback")
 class PPYoloETrainingStageSwitchCallback(Callback):
     """Switch PPYoloELoss from the static ATSS assigner to TAL at
@@ -487,3 +523,40 @@ class ExtremeBatchSegVisualizationCallback(ExtremeBatchCaseVisualizationCallback
         for j, drawn in enumerate(draw_segmentations(images, masks)):
             if context.sg_logger is not None:
                 context.sg_logger.add_image(f"{self._tag()}/img{j} (loss={loss:.3f})", drawn, context.epoch)
+
+
+# ----------------------------------------------------- sliding-window validation
+
+
+@register_callback("SlidingWindowValidationCallback")
+class SlidingWindowValidationCallback(Callback):
+    """Sliding-window tiled inference over the first ``max_batches`` validation batches at
+    the end of validation, logging the detection count. The JAX callback calls
+    ``wrapper(img)`` on a wrapper that defines no ``__call__``, so on a detection model
+    with a validation loader it raises ``TypeError`` there; the port keeps that behaviour
+    (ROADMAP section 3: a JAX fault, to fix with the JAX package)."""
+
+    def __init__(self, tile_size: int = 320, tile_step: int = 256, max_batches: int = 1):
+        self.tile_size = tile_size
+        self.tile_step = tile_step
+        self.max_batches = max_batches
+
+    def on_validation_loader_end(self, context: PhaseContext):
+        import numpy as np
+
+        from super_gradients_tpu_torch.inference.sliding_window import SlidingWindowInferenceDetectionWrapper
+
+        model = context.model
+        if getattr(model, "task", None) != "detection" or context.valid_loader is None:
+            return
+        wrapper = SlidingWindowInferenceDetectionWrapper(model, tile_size=self.tile_size, tile_step=self.tile_step)
+        total = 0
+        for bi, batch in enumerate(context.valid_loader):
+            if bi >= self.max_batches:
+                break
+            for img in np.asarray(batch[0]):
+                out = wrapper(img)
+                total += int(np.asarray(out.num_detections))
+        context.metrics_dict["sliding_window_detections"] = total
+        if context.sg_logger is not None:
+            context.sg_logger.add_scalar("Valid/sliding_window_detections", total, context.epoch)

@@ -245,6 +245,14 @@ class DataLoader(torch.utils.data.DataLoader):
         if hasattr(self.sampler, "set_epoch"):
             self.sampler.set_epoch(epoch)
 
+    def restart_workers(self) -> None:
+        """Shut the persistent workers down: the next iteration starts new ones from the
+        dataset as it is now (a stage switch changed its transforms)."""
+        iterator = getattr(self, "_iterator", None)
+        if iterator is not None and hasattr(iterator, "_shutdown_workers"):
+            iterator._shutdown_workers()
+        self._iterator = None
+
     @property
     def max_value(self) -> Optional[float]:
         return getattr(self.dataset, "max_value", None)
@@ -322,6 +330,71 @@ def coco2017_val_yolo_nas(data_dir: str, batch_size: int = 32, input_dim=(640, 6
         with_crowd=with_crowd,
     )
     return DataLoader(ds, batch_size=batch_size, shuffle=False, drop_last=False, **_loader_kwargs(kw))
+
+
+class PPYoloEMultiScaleCollate:
+    """Multi-scale batch resize of the PP-YOLOE COCO loader (the JAX package's): the
+    sizes cycle through a fixed list keyed by a batch counter that starts at ``seed`` and
+    counts up before each batch. A batch of another height is resized as
+    ``jax.image.resize(..., "bilinear")`` does (half-pixel, antialiased where it shrinks:
+    ``F.interpolate(antialias=True)``) to that height and ``round(w * scale)``, and every
+    box coordinate >= 0 is scaled. uint8 images are standardized first, ``x * float32(1 /
+    255)`` as the trainer does on the device for the detection chains'
+    ``DetectionStandardize(255)``, so a resized batch leaves as float32 in [0, 1] (the trainer
+    passes a float batch unchanged) and one at its own size as uint8."""
+
+    def __init__(self, sizes=(480, 512, 544, 576, 608, 640), seed: int = 0):
+        self.sizes = tuple(int(s) for s in sizes)
+        self._count = seed
+
+    def __call__(self, samples):
+        from super_gradients_tpu_torch.models.segmentation.ppliteseg import resize_linear
+
+        images = torch.from_numpy(np.stack([np.asarray(s[0]) for s in samples]))
+        targets = torch.from_numpy(np.stack([np.asarray(s[1]) for s in samples]))
+        self._count += 1
+        size = self.sizes[self._count % len(self.sizes)]
+        if images.shape[2] != size:
+            scale = size / images.shape[2]
+            if images.dtype == torch.uint8:
+                images = images.float().mul_(float(np.float32(1.0 / 255.0)))
+            images = resize_linear(images, (size, int(round(images.shape[3] * scale))))
+            targets = targets.clone()
+            box = targets[..., 1:5]
+            targets[..., 1:5] = torch.where(box >= 0, box * scale, box)
+        return images, targets
+
+
+@register_dataloader("coco2017_train_ppyoloe")
+def coco2017_train_ppyoloe(data_dir: str, batch_size: int = 16, input_dim=(640, 640), max_boxes: int = 120,
+                           multiscale: bool = False, subdir: str = "images/train2017",
+                           json_file: str = "instances_train2017.json", **kw) -> DataLoader:
+    """The YOLO-NAS COCO train loader, batches resized by :class:`PPYoloEMultiScaleCollate` with ``multiscale``."""
+    ds = COCODetectionDataset(
+        data_dir=data_dir, subdir=subdir, json_file=json_file,
+        transforms=_yolo_nas_train_transforms(tuple(input_dim)), max_boxes=max_boxes,
+        ignore_empty_annotations=True,
+    )
+    collate = PPYoloEMultiScaleCollate() if multiscale else None
+    return DataLoader(ds, batch_size=batch_size, shuffle=True, drop_last=True, collate_fn=collate, **_loader_kwargs(kw))
+
+
+@register_dataloader("coco2017_val_ppyoloe")
+def coco2017_val_ppyoloe(data_dir: str, batch_size: int = 32, input_dim=(640, 640), max_boxes: int = 120,
+                         subdir: str = "images/val2017", json_file: str = "instances_val2017.json", **kw) -> DataLoader:
+    return coco2017_val_yolo_nas(data_dir, batch_size, input_dim, max_boxes, subdir, json_file, **_loader_kwargs(kw))
+
+
+@register_dataloader("coco2017_train_yolox")
+def coco2017_train_yolox(data_dir: str, batch_size: int = 16, input_dim=(640, 640), max_boxes: int = 120,
+                         **kw) -> DataLoader:
+    return coco2017_train_yolo_nas(data_dir, batch_size, input_dim, max_boxes, **kw)
+
+
+@register_dataloader("coco2017_val_yolox")
+def coco2017_val_yolox(data_dir: str, batch_size: int = 32, input_dim=(640, 640), max_boxes: int = 120,
+                       **kw) -> DataLoader:
+    return coco2017_val_yolo_nas(data_dir, batch_size, input_dim, max_boxes, **kw)
 
 
 @register_dataloader("roboflow_train")

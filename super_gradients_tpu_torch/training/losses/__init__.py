@@ -1,6 +1,6 @@
 """Loss registry surface of the port (counterpart of
 ``super_gradients_tpu/training/losses/__init__.py``; the classification and segmentation
-losses, PPYoloELoss and YoloNASPoseLoss so far)."""
+losses, PPYoloELoss, YoloXDetectionLoss and YoloNASPoseLoss so far)."""
 
 from super_gradients_tpu_torch.common.registry import LOSSES
 from super_gradients_tpu_torch.training.losses.classification_losses import (  # noqa: F401
@@ -21,6 +21,7 @@ from super_gradients_tpu_torch.training.losses.segmentation_losses import (  # n
     STDCLoss,
 )
 from super_gradients_tpu_torch.training.losses.yolo_nas_pose_loss import YoloNASPoseLoss  # noqa: F401
+from super_gradients_tpu_torch.training.losses.yolox_loss import YoloXDetectionLoss  # noqa: F401
 
 
 def get_loss(name_or_loss, criterion_params=None):

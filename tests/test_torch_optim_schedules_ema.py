@@ -250,8 +250,8 @@ def _model_stub():
     (dict(sg_logger_params={"monitor_system": True}), None, NotImplementedError),
     (dict(train_metrics_list=["DepthMAE"]), None, KeyError),
     (dict(valid_metrics_list=[{"DepthRMSE": {}}]), None, KeyError),
-    (dict(phase_callbacks=["SlidingWindowValidationCallback"]), None, KeyError),
-    (dict(phase_callbacks=[{"YoloXTrainingStageSwitchCallback": {}}]), None, KeyError),
+    (dict(valid_metrics_list=["DepthMSE"]), None, KeyError),
+    (dict(phase_callbacks=[{"ModelConversionCheckCallback": {}}]), None, KeyError),
     (dict(), "additional_callbacks", KeyError),
     (dict(phase_callbacks=["x"]), None, KeyError),
 ])

@@ -232,8 +232,9 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
-    surface (the pose, classification and segmentation modules included) imports, detection,
-    pose, classification and segmentation predict take the no-cv2 resizes, reading an image
+    surface (the pose, classification, segmentation and PP-YOLOE / YOLOX modules included)
+    imports, detection (YOLO-NAS, YOLOX, tiled), pose, classification and segmentation
+    predict take the no-cv2 resizes, reading an image
     or a YAML recipe raises
     an ImportError that names
     PIL or PyYAML, and, once PIL is back, a COCO-format dataset of PNGs runs one sample
@@ -277,6 +278,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.models.segmentation import ppliteseg, stdc
         from super_gradients_tpu_torch.training.losses import segmentation_losses
         from super_gradients_tpu_torch.training.metrics import segmentation
+        from super_gradients_tpu_torch.models.detection import customizable_detector, pp_yolo_e, yolox
+        from super_gradients_tpu_torch.training import collate_functions
+        from super_gradients_tpu_torch.training.losses import yolox_loss
+        from super_gradients_tpu_torch.inference import sliding_window
         assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
@@ -292,6 +297,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
         classifier = models.get("resnet18", num_classes=10, arch_params={{"width_mult": 0.25}}, device="cpu")
         labels = classifier.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)] * 2, batch_size=4)
         assert len(labels) == 2 and labels[0].labels.shape == (5,) and np.isfinite(labels[0].confidence).all()
+        detector = models.get("yolox_n", num_classes=4, image_size=64, device="cpu")
+        boxes = detector.predict([rng.randint(0, 256, (50, 64, 3), dtype=np.uint8)], conf=1e-6)
+        assert len(boxes[0]) > 0 and np.isfinite(boxes[0].bboxes_xyxy).all()
+        tiled = sliding_window.SlidingWindowInferenceDetectionWrapper(model, tile_size=64, tile_step=48)
+        assert np.isfinite(tiled.predict(rng.randint(0, 256, (70, 100, 3), dtype=np.uint8))[0].bboxes_xyxy).all()
         segmenter = models.get("pp_lite_t_seg", num_classes=4, input_hw=(64, 128), device="cpu")
         maps = segmenter.predict([rng.randint(0, 256, (40, 70, 3), dtype=np.uint8)], batch_size=2)
         assert maps[0].segmentation_map.shape == (40, 70) and maps[0].segmentation_map.max() < 4

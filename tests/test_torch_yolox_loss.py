@@ -1,0 +1,182 @@
+"""YoloXDetectionLoss of the PyTorch port against the JAX package's.
+
+Outputs are built from the same seeded raw regression, objectness and class logits in
+both packages (the YOLOX decode on a 64x64 grid of strides 8, 16 and 32, 84 anchors,
+3 classes); targets are padded ``[B, 6, 5]`` rows. Held: the SimOTA assignment
+(foreground mask, matched gt) exactly, its matched IoUs and every loss component to
+``rtol=1e-5``, and the gradients of the three raw outputs to ``atol=1e-6, rtol=1e-4``,
+with ``use_l1`` off and on. A tie fixture gives several anchors the same predicted box
+and scores and two gts the same box and label, so that the lowest-cost ``top_k``
+(``lax.top_k``: the lowest index first) and the multi-match ``argmin`` (the first gt)
+decide between equal costs; the fixture asserts that the ties are there. A saturated
+case drives the scores to underflow, where XLA flushes subnormals and torch keeps them:
+both clip the scores to 1e-8, so the assignment stays equal without a flush.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from super_gradients_tpu.models.detection.yolox import YoloXOutputs as JaxOutputs
+from super_gradients_tpu.training.losses.yolox_loss import YoloXDetectionLoss as JaxLoss
+from super_gradients_tpu_torch.models.detection.yolox import YoloXOutputs
+from super_gradients_tpu_torch.training.losses import get_loss
+from super_gradients_tpu_torch.training.losses.yolox_loss import YoloXDetectionLoss
+
+C = 3
+LEVELS = ((8, 8, 8), (4, 4, 16), (2, 2, 32))
+
+
+def _grid():
+    pts, st = [], []
+    for h, w, s in LEVELS:
+        gy, gx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        pts.append(np.stack([gx, gy], -1).reshape(-1, 2))
+        st.append(np.full((h * w, 1), s))
+    return np.concatenate(pts).astype(np.float32), np.concatenate(st).astype(np.float32)
+
+
+PTS, ST = _grid()
+A = len(PTS)
+NUMS = tuple(h * w for h, w, _ in LEVELS)
+
+
+def jax_outputs(reg, obj, cls, boxes=None):
+    xy = (reg[..., :2] + PTS[None]) * ST[None]
+    wh = jnp.exp(jnp.clip(reg[..., 2:4], -10, 8)) * ST[None]
+    decoded = jnp.concatenate([xy - wh / 2, xy + wh / 2], -1)
+    scores = jax.nn.sigmoid(obj)[..., None] * jax.nn.sigmoid(cls)
+    return JaxOutputs(decoded if boxes is None else jnp.asarray(boxes), scores, reg, obj, cls, jnp.asarray(PTS),
+                      jnp.asarray(ST), NUMS)
+
+
+def port_outputs(reg, obj, cls, boxes=None):
+    pts, st = torch.from_numpy(PTS), torch.from_numpy(ST)
+    xy = (reg[..., :2] + pts[None]) * st[None]
+    wh = torch.exp(reg[..., 2:4].clamp(-10, 8)) * st[None]
+    decoded = torch.cat([xy - wh / 2, xy + wh / 2], -1)
+    scores = torch.sigmoid(obj)[..., None] * torch.sigmoid(cls)
+    return YoloXOutputs(decoded if boxes is None else torch.from_numpy(boxes), scores, reg, obj, cls, pts, st, NUMS)
+
+
+def random_case(seed, b=2, n_gt=4, saturate=False):
+    rng = np.random.RandomState(seed)
+    reg = (rng.randn(b, A, 4) * 0.5).astype(np.float32)
+    obj = rng.randn(b, A).astype(np.float32)
+    cls = rng.randn(b, A, C).astype(np.float32)
+    if saturate:
+        obj -= 60.0
+        cls[..., 0] -= 60.0
+    t = -np.ones((b, 6, 5), np.float32)
+    for i in range(b):
+        for j in range(n_gt - i):  # images with different counts of gts
+            x1, y1 = rng.uniform(0, 44, 2)
+            w, h = rng.uniform(4, 30, 2)
+            t[i, j] = [rng.randint(C), x1, y1, min(x1 + w, 64), min(y1 + h, 64)]
+    return reg, obj, cls, t, None
+
+
+def tie_case():
+    """Eight stride-8 anchors around (20, 20) predict one identical box (IoU 0.44 with
+    the gt, so dynamic k stays below eight) with identical scores, and the second gt
+    repeats the first: top-k and argmin then choose among equal costs."""
+    reg, obj, cls, t, _ = random_case(7, b=1, n_gt=1)
+    boxes = np.asarray(jax_outputs(jnp.asarray(reg), jnp.asarray(obj), jnp.asarray(cls)).pred_bboxes).copy()
+    same = [18, 19, 20, 26, 27, 28, 34, 35]
+    boxes[0, same] = [12.0, 12.0, 30.0, 30.0]
+    obj[0, same] = 1.5
+    cls[0, same] = [2.0, -1.0, 0.5]
+    t[0, 0] = [0, 14.0, 14.0, 26.0, 26.0]
+    t[0, 1] = t[0, 0]
+    return reg, obj, cls, t, boxes
+
+
+CASES = {"random": lambda: random_case(0), "random_b3": lambda: random_case(1, b=3, n_gt=5),
+         "ties": tie_case, "saturated": lambda: random_case(2, saturate=True)}
+
+
+def _assign_both(case, use_l1=False):
+    reg, obj, cls, t, boxes = case
+    jl, pl = JaxLoss(num_classes=C, use_l1=use_l1), YoloXDetectionLoss(num_classes=C, use_l1=use_l1)
+    jo = jax_outputs(jnp.asarray(reg), jnp.asarray(obj), jnp.asarray(cls), boxes)
+    po = port_outputs(torch.from_numpy(reg), torch.from_numpy(obj), torch.from_numpy(cls), boxes)
+    tj, tp = jnp.asarray(t), torch.from_numpy(t)
+    args_j = (jo.pred_bboxes, jo.pred_scores, jo.anchor_points * jo.stride_tensor + jo.stride_tensor * 0.5,
+              jo.stride_tensor, tj[..., 1:5], jnp.maximum(tj[..., 0], 0).astype(jnp.int32),
+              (tj[..., 0] >= 0).astype(jnp.float32))
+    args_p = (po.pred_bboxes, po.pred_scores, po.anchor_points * po.stride_tensor + po.stride_tensor * 0.5,
+              po.stride_tensor, tp[..., 1:5], tp[..., 0].clamp(min=0).long(), (tp[..., 0] >= 0).float())
+    return jl._assign(*args_j), pl._assign(*args_p), pl, args_p
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_assignment_matches_jax(case):
+    (jfg, jgt, jiou), (pfg, pgt, piou), _, _ = _assign_both(CASES[case]())
+    np.testing.assert_array_equal(pfg.numpy(), np.asarray(jfg))
+    np.testing.assert_array_equal(pgt.numpy(), np.asarray(jgt))
+    np.testing.assert_allclose(piou.numpy(), np.asarray(jiou), rtol=1e-5, atol=1e-7)
+    assert pfg.sum() > 0
+
+
+def test_tie_fixture_reaches_the_ties():
+    """Among the lowest-cost candidates of the first gt, several costs are equal (top-k
+    ties) and the chosen ones are the lowest indices; anchors matched by both identical
+    gts resolve to the first (argmin ties)."""
+    (_, jgt, _), (pfg, pgt, _), loss, args = _assign_both(tie_case())
+    prior, _, cost = loss.costs(*args)
+    same = torch.tensor([18, 19, 20, 26, 27, 28, 34, 35])
+    assert bool(prior[0, 0, same].all()) and len(torch.unique(cost[0, 0, same])) == 1
+    assert torch.equal(cost[0, 0], cost[0, 1])
+    order = torch.sort(cost[0, 0], stable=True).indices[:10]
+    assert set(order[:8].tolist()) == set(same.tolist())
+    # dynamic k picks fewer than the eight tied anchors: the lowest indices win
+    picked = same[pfg[0, same]]
+    assert 0 < len(picked) < len(same) and picked.tolist() == same[:len(picked)].tolist()
+    assert bool((pgt[0, picked] == 0).all())
+    np.testing.assert_array_equal(pgt.numpy(), np.asarray(jgt))
+
+
+def test_saturated_case_underflows():
+    reg, obj, cls, _, _ = random_case(2, saturate=True)
+    scores = port_outputs(torch.from_numpy(reg), torch.from_numpy(obj), torch.from_numpy(cls)).pred_scores
+    assert bool((scores[..., 0] < torch.finfo(torch.float32).tiny).all())
+
+
+@pytest.mark.parametrize("use_l1", [False, True])
+@pytest.mark.parametrize("case", ["random", "random_b3", "ties"])
+def test_loss_and_gradients_match_jax(case, use_l1):
+    reg, obj, cls, t, boxes = CASES[case]()
+    jl, pl = JaxLoss(num_classes=C, use_l1=use_l1), YoloXDetectionLoss(num_classes=C, use_l1=use_l1)
+
+    def jf(reg, obj, cls):
+        return jl(jax_outputs(reg, obj, cls), jnp.asarray(t))
+
+    (jv, jaux), jgrads = jax.value_and_grad(jf, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(reg), jnp.asarray(obj), jnp.asarray(cls))
+    leaves = [torch.tensor(a, requires_grad=True) for a in (reg, obj, cls)]
+    pv, paux = pl(port_outputs(*leaves), torch.from_numpy(t))
+    pv.backward()
+    assert sorted(paux) == sorted(jaux) == sorted(c for c in YoloXDetectionLoss.component_names[:-1]
+                                                  if c != "l1" or use_l1)
+    np.testing.assert_allclose(pv.item(), float(jv), rtol=1e-5)
+    for k in jaux:
+        np.testing.assert_allclose(float(paux[k]), float(jaux[k]), rtol=1e-5, err_msg=k)
+    for name, g, leaf in zip(("reg_raw", "obj_logits", "cls_logits"), jgrads, leaves):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(g), atol=1e-6, rtol=1e-4, err_msg=name)
+    assert float(paux["num_fg"]) > 0
+
+
+def test_registered_names_and_padding_rows():
+    """Both registry names build the loss; an image without gts gives no positive and a
+    finite loss (objectness only), as in JAX."""
+    assert type(get_loss("YoloXFastDetectionLoss", {"num_classes": C})) is YoloXDetectionLoss
+    reg, obj, cls, t, _ = random_case(3, b=2)
+    t[1] = -1.0
+    loss = get_loss("YoloXDetectionLoss", {"num_classes": C})
+    pv, paux = loss(port_outputs(*(torch.from_numpy(a) for a in (reg, obj, cls))), torch.from_numpy(t))
+    jv, jaux = JaxLoss(num_classes=C)(jax_outputs(*(jnp.asarray(a) for a in (reg, obj, cls))), jnp.asarray(t))
+    assert torch.isfinite(pv)
+    np.testing.assert_allclose(pv.item(), float(jv), rtol=1e-5)
+    np.testing.assert_allclose(float(paux["num_fg"]), float(jaux["num_fg"]))

@@ -142,7 +142,26 @@ result) without CUDA or without the port's sources next to it. Phases:
    mosaic and mixup closed, ATSS to TAL), K1 once a validation batch, ``evaluate_checkpoint``
    within 1e-6 of a direct ``Trainer.evaluate`` with a planted fault beyond it,
    ``resume_experiment`` taking no step, and a few batches of ``coco2017_train_ppyoloe`` with
-   ``multiscale`` over a COCO-layout copy of the images at the sizes of its schedule.
+   ``multiscale`` over a COCO-layout copy of the images at the sizes of its schedule;
+17. MobileNet and SSD at full width, seed 0: (a) SSD-lite-MobileNetV2 (80 classes, 320, BN
+   statistics on 16 noise images) fp32 ``predict()`` (TF32 off, exact NMS) on phase 3's
+   request and a PIL image on the card against the CPU, phase 4's matched-fraction rule at
+   the default conf 0.25 (both NMS caps bind) and at 0.95 (neither does), with what each
+   unmatched detection met printed; (b) K1 bit-equal to its plain version on SSD's captured
+   candidates (the raw 81-column confs, as the JAX predict program suppresses them) at b8 and
+   b32, timed; (c) fused bf16 ``predict_batch_tensor`` at b8 and b32: img/s, forward and
+   ``batched_nms`` ms, idle share; (d) one fp32 SGD SSD step at b2 on the card and on the CPU
+   held to an fp64 CPU step (phase 8's rule: the matching and the mined negatives compared,
+   then the fp64 ones shared), and the bf16 step at b32 by part with ``SSDLoss`` apart, idle
+   share and peak memory; (e) MobileNetV3-large (1000 classes, 224, the head scaled to a logit
+   std of 2) fp32 ``predict()`` against the CPU (top-1 equal, top-5 within ``CLS_CONF_TOL``, the
+   card's logits within twice the CPU's distance to fp64) and its fp32 forward at b32 and b128; (f) ``train_from_recipe`` of
+   ``coco2017_ssd_lite_mobilenet_v2`` on a COCO-layout copy of phase 11's PNGs (2 epochs of b16),
+   K1 once a validation batch, the dataset's class names on the trained model,
+   ``evaluate_checkpoint`` within 1e-6 of a direct ``Trainer.evaluate`` with a planted fault
+   beyond it; (g) ``models.get("ssd_lite_mobilenet_v2", pretrained_weights="coco")`` from a
+   temporary ``$SG_PRETRAINED_DIR`` holding a port-written ``.pth``: predictions equal to the
+   same file through ``checkpoint_path=``, the COCO class names and processing.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -447,25 +466,63 @@ def phase_gpu_vs_cpu(torch, np, models, model, matched_fraction):
         torch.backends.cudnn.allow_tf32 = True
 
 
+def same_boxes(np, a, b):
+    """[len(a), len(b)]: every coordinate within 1e-3 px plus 1e-5 of its magnitude (a few fp32
+    ulps, scaled up from the model's input to the original image)."""
+    a, b = a[:, None], b[None]
+    return (np.abs(a - b) <= 1e-3 + 1e-5 * np.maximum(np.abs(a), np.abs(b))).all(-1)
+
+
+def match_detections(torch, np, box_iou, a, b, iou_min):
+    """Greedy one-to-one matches between two non-empty detection sets, in a's order: same
+    label, IoU >= iou_min, or the same box up to fp32 rounding of original-image pixels
+    (clipping can make a box zero-area, whose IoU is 0 even with itself). Returns the
+    matched indices of a and of b."""
+    iou = box_iou(torch.from_numpy(a.bboxes_xyxy), torch.from_numpy(b.bboxes_xyxy)).numpy()
+    same = same_boxes(np, a.bboxes_xyxy, b.bboxes_xyxy)
+    ok = ((iou >= iou_min) | same) & (a.labels[:, None] == b.labels[None])
+    matched_a, matched_b = [], set()
+    for i in range(len(a)):
+        for j in np.flatnonzero(ok[i]):
+            if j not in matched_b:
+                matched_a.append(i)
+                matched_b.add(j)
+                break
+    return matched_a, matched_b
+
+
 def matched_fraction_fn(torch, np, box_iou):
     def matched_fraction(a, b, iou_min):
-        """One-to-one matches between two detection sets: same label, IoU >= iou_min
-        (or identical boxes: clipping can make a box zero-area)."""
+        """Share of one-to-one matches between two detection sets (match_detections)."""
         if len(a) == 0 or len(b) == 0:
             return float(len(a) == len(b))
-        iou = box_iou(torch.from_numpy(a.bboxes_xyxy), torch.from_numpy(b.bboxes_xyxy)).numpy()
-        same = np.abs(a.bboxes_xyxy[:, None] - b.bboxes_xyxy[None]).max(-1) <= 1e-3
-        ok = ((iou >= iou_min) | same) & (a.labels[:, None] == b.labels[None])
-        used, matched = set(), 0
-        for i in range(len(a)):
-            for j in np.flatnonzero(ok[i]):
-                if j not in used:
-                    used.add(j)
-                    matched += 1
-                    break
-        return matched / max(len(a), len(b))
+        return len(match_detections(torch, np, box_iou, a, b, iou_min)[0]) / max(len(a), len(b))
 
     return matched_fraction
+
+
+def unmatched_causes(torch, np, box_iou, a, b, iou_min):
+    """Each detection of ``a`` that match_detections leaves without a partner in ``b``: its
+    label, score, rank in a (of how many) and box, the lowest score b kept, its best IoU with
+    a same-label detection of b, its largest IoU with a same-label detection that scores
+    higher in b (the box that suppressed it there if that IoU passes the NMS threshold), and
+    the same-label box of b nearest in its coordinates."""
+    matched_a, _ = match_detections(torch, np, box_iou, a, b, iou_min)
+    iou = box_iou(torch.from_numpy(a.bboxes_xyxy), torch.from_numpy(b.bboxes_xyxy)).numpy()
+    rank = np.empty(len(a), int)
+    rank[np.argsort(-a.confidence, kind="stable")] = np.arange(len(a))
+    causes = []
+    for i in sorted(set(range(len(a))) - set(matched_a)):
+        same = b.labels == a.labels[i]
+        higher = same & (b.confidence > a.confidence[i])
+        causes.append({"label": int(a.labels[i]), "score": float(a.confidence[i]), "rank": f"{rank[i] + 1}/{len(a)}",
+                       "other_lowest_score": float(b.confidence.min()),
+                       "best_iou": float(iou[i][same].max()) if same.any() else 0.0,
+                       "higher_scoring_iou": float(iou[i][higher].max()) if higher.any() else 0.0,
+                       "box": a.bboxes_xyxy[i].tolist(),
+                       "nearest_box": b.bboxes_xyxy[same][np.abs(b.bboxes_xyxy[same] - a.bboxes_xyxy[i]).max(-1)
+                                                          .argmin()].tolist() if same.any() else None})
+    return causes
 
 
 def phase_timing(torch, model):
@@ -921,6 +978,56 @@ RECIPE_WAVES = 3  # train batches a loader worker makes an epoch in phase 11 (th
 RECIPE_EVAL_TOL = 1e-6
 
 
+def metric_differences(a, b):
+    """|a - b| of each metric of ``b``, of Loss relative to b's."""
+    return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
+
+
+def check_evaluate_checkpoint(torch, cfg, experiment, ckpt_dir, ckpt_root, tag, fault="ema"):
+    """evaluate_checkpoint(ckpt_best) of a recipe run held to a direct Trainer.evaluate of
+    models.get(checkpoint_path=ckpt_best.pth) on the recipe's val loader (fp32, within
+    RECIPE_EVAL_TOL), and a planted fault beyond it: the live weights where the EMA's belong
+    (``fault="ema"``) or a fresh model's BN statistics (``fault="bn"``, for runs whose EMA
+    equals the live weights). Returns (the evaluated metrics, the checkpoint's epoch)."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training import Trainer
+
+    best_path = os.path.join(ckpt_dir, "ckpt_best.pth")
+    best = torch.load(best_path, map_location="cpu", weights_only=True)
+    t0 = time.perf_counter()
+    evaluated = Trainer.evaluate_checkpoint(experiment, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
+    seconds = time.perf_counter() - t0
+    build = dict(num_classes=cfg["num_classes"], arch_params=cfg.get("arch_params"))
+    model = models.get(cfg["architecture"], checkpoint_path=best_path, **build)
+    val_loader = Trainer._loader_from_cfg(cfg, "val")
+    hyper = cfg["training_hyperparams"]
+    direct = Trainer(f"{experiment}_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, hyper)
+    diffs = metric_differences(evaluated, direct)
+    if fault == "ema":
+        what = "live weights for the EMA's"
+        model.net.load_state_dict(best["net"])
+    else:
+        what = "a fresh model's BN statistics"
+        fresh = models.get(cfg["architecture"], seed=1, **build)
+        with torch.no_grad():
+            for name, buf in fresh.net.named_buffers():
+                model.net.get_buffer(name).copy_(buf)
+        del fresh
+    faulty = metric_differences(Trainer(f"{experiment}_fault", ckpt_root_dir=ckpt_root).evaluate(
+        model, val_loader, hyper), direct)
+    close_loader(val_loader)
+    epoch = best.get("epoch")
+    print(f"[{tag}] {experiment} evaluate_checkpoint(ckpt_best, epoch {epoch}, fp32) {seconds:.1f} s: "
+          f"{json.dumps(evaluated)}; |difference| to Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) "
+          f"(Loss relative): {json.dumps(diffs)}, limit {RECIPE_EVAL_TOL}; planted fault ({what}): {json.dumps(faulty)}")
+    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"{experiment} evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
+    check(max(faulty.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the {experiment} evaluate_checkpoint gate: "
+                                                   f"{faulty}")
+    del model, best
+    torch.cuda.empty_cache()
+    return evaluated, epoch
+
+
 def smooth_field(np, rng, h, w):
     """A seeded smooth RGB field: a 5x7 grid of random colours, bilinearly upsampled."""
     grid = rng.randint(0, 256, (5, 7, 3)).astype(np.float32)
@@ -1122,7 +1229,7 @@ def phase_recipe(torch, np, nms_exact, ckpt_root, data_root):
 
 
 def _phase_recipe(torch, np, nms_exact, ckpt_root, data_root, cv2):
-    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch import train_from_recipe
     from super_gradients_tpu_torch.common import config
     from super_gradients_tpu_torch.training import Trainer, dataloaders
     from super_gradients_tpu_torch.training.trainer import _to_device
@@ -1202,33 +1309,11 @@ def _phase_recipe(torch, np, nms_exact, ckpt_root, data_root, cv2):
     resume_seconds = time.perf_counter() - t1
     check(resumed.ckpt_dir == trainer.ckpt_dir and resumed.train_loss_history == [], "resume_experiment took a step")
     check_state_equal(torch, trainer.train_state, resumed.train_state)
-    best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
-    best = torch.load(best_path, map_location="cpu", weights_only=True)
-    t2 = time.perf_counter()
-    evaluated = Trainer.evaluate_checkpoint("roboflow_yolo_nas_m", ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
-    eval_seconds = time.perf_counter() - t2
-
-    def differences(a, b):  # |a - b| of each metric, of Loss relative to b
-        return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
-
-    # the reference: the checkpoint loaded by models.get, evaluated directly on the recipe's val loader
-    model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], arch_params=cfg.get("arch_params"),
-                       checkpoint_path=best_path)
-    val_loader = Trainer._loader_from_cfg(cfg, "val")
-    direct = Trainer("recipe_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
-    diffs = differences(evaluated, direct)
-    model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
-    fault = differences(Trainer("recipe_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
-                                                                                  cfg["training_hyperparams"]), direct)
-    close_loader(val_loader)
-    print(f"[11] resume_experiment: no step, state bit-equal, {resume_seconds:.1f} s; evaluate_checkpoint(ckpt_best, "
-          f"epoch {best['epoch']}, fp32) {eval_seconds:.1f} s: {json.dumps(evaluated)}; |difference| to "
-          f"Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): {json.dumps(diffs)}, limit "
-          f"{RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}; to the epoch's bf16 "
-          f"validation: {json.dumps(differences(evaluated, valid[best['epoch']]))}")
-    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
-    check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the evaluate_checkpoint gate: {fault}")
-    del trainer, resumed, best, model
+    print(f"[11] resume_experiment: no step, state bit-equal, {resume_seconds:.1f} s")
+    evaluated, epoch = check_evaluate_checkpoint(torch, cfg, "roboflow_yolo_nas_m", trainer.ckpt_dir, ckpt_root, "11")
+    print(f"[11] evaluate_checkpoint to the epoch's bf16 validation: "
+          f"{json.dumps(metric_differences(evaluated, valid[epoch]))}")
+    del trainer, resumed
 
     val = dataloaders.get(cfg["val_dataloader"], dataset_params=cfg["dataset_params"]["val_dataset_params"],
                           dataloader_params={"batch_size": 16})
@@ -1807,29 +1892,9 @@ def phase_pose_recipe(torch, np, nms_exact, dataloaders, Trainer, models, data_r
           f"{loader.window_ms:.2f} ms, idle share {1 - loader.busy_ms / loader.window_ms:.3f}; {loader.batch_bytes} "
           f"bytes a batch to the card (float32 images + float32 targets)")
 
-    experiment = cfg["experiment_name"]
-    evaluated = Trainer.evaluate_checkpoint(experiment, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
-    best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
-    best = torch.load(best_path, map_location="cpu", weights_only=True)
-    model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], checkpoint_path=best_path)
-    val_loader = Trainer._loader_from_cfg(cfg, "val")
-    direct = Trainer("pose_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
-
-    def differences(a, b):  # |a - b| of each metric, of Loss relative to b
-        return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
-
-    diffs = differences(evaluated, direct)
-    model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
-    fault = differences(Trainer("pose_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
-                                                                                cfg["training_hyperparams"]), direct)
-    close_loader(val_loader)
-    print(f"[13e] evaluate_checkpoint(ckpt_best, epoch {best['epoch']}, fp32): {json.dumps(evaluated)}; |difference| "
-          f"to Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): {json.dumps(diffs)}, "
-          f"limit {RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}")
-    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"pose evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
-    check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the pose evaluate_checkpoint gate: {fault}")
+    check_evaluate_checkpoint(torch, cfg, cfg["experiment_name"], trainer.ckpt_dir, ckpt_root, "13e")
     close_loader(loader.loader)
-    del trainer, model, best
+    del trainer
     torch.cuda.empty_cache()
     return launches
 
@@ -2116,35 +2181,14 @@ def phase_classification_recipe(torch, np, root):
     check(all(np.isfinite(trainer.train_loss_history)), f"cifar10_resnet losses {trainer.train_loss_history}")
 
     experiment = cfg["experiment_name"]
-    evaluated = Trainer.evaluate_checkpoint(experiment, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
-    best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
-    model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], checkpoint_path=best_path)
-    val_loader = Trainer._loader_from_cfg(cfg, "val")
-    direct = Trainer("cls_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
-
-    def differences(a, b):  # |a - b| of each metric, of Loss relative to b
-        return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
-
-    diffs = differences(evaluated, direct)
-    # planted fault: the checkpoint's parameters with a fresh model's BN statistics
-    fresh = models.get(cfg["architecture"], num_classes=cfg["num_classes"])
-    with torch.no_grad():
-        for name, buf in fresh.net.named_buffers():
-            model.net.get_buffer(name).copy_(buf)
-    fault = differences(Trainer("cls_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
-                                                                               cfg["training_hyperparams"]), direct)
-    print(f"[14d] evaluate_checkpoint(ckpt_best, fp32): {json.dumps(evaluated)}; |difference| to Trainer.evaluate of "
-          f"models.get(checkpoint_path=ckpt_best.pth) (Loss relative): {json.dumps(diffs)}, limit {RECIPE_EVAL_TOL}; "
-          f"planted fault (a fresh model's BN statistics): {json.dumps(fault)}")
-    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
-    check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the evaluate_checkpoint gate: {fault}")
+    check_evaluate_checkpoint(torch, cfg, experiment, trainer.ckpt_dir, ckpt_root, "14d", fault="bn")
     step_before = trainer.train_state.step
     _, resumed = Trainer.resume_experiment(experiment, ckpt_root_dir=ckpt_root)
     print(f"[14d] resume_experiment: {len(resumed.train_loss_history)} epochs run, "
           f"{resumed.train_state.step} optimizer steps counted (the run had {step_before})")
     check(resumed.train_loss_history == [] and resumed.train_state.step == step_before,
           "resume_experiment of a finished cifar10_resnet run took a step")
-    del trainer, resumed, model, fresh
+    del trainer, resumed
     torch.cuda.empty_cache()
 
 
@@ -2364,38 +2408,15 @@ def phase_segmentation_recipes(torch, np, root):
                                       for v in valid), f"{recipe} validation results {valid}")
         check(not unchanged, f"{recipe}: parameters the training left unchanged: {unchanged[:5]}")
 
-        evaluated = Trainer.evaluate_checkpoint(cfg["experiment_name"], ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
-        best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
-        best = torch.load(best_path, map_location="cpu", weights_only=True)
-        model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], checkpoint_path=best_path)
-        val_loader = Trainer._loader_from_cfg(cfg, "val")
-        direct = Trainer("seg_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader, cfg["training_hyperparams"])
-
-        def differences(a, b):  # |a - b| of each metric, of Loss relative to b
-            return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
-
-        diffs = differences(evaluated, direct)
-        # planted fault: the checkpoint's parameters with a fresh model's BN statistics (the live
-        # weights would not do: after one step the EMA equals them, its first decay being 0)
-        fresh = models.get(cfg["architecture"], num_classes=cfg["num_classes"], seed=1)
-        with torch.no_grad():
-            for buf_name, buf in fresh.net.named_buffers():
-                model.net.get_buffer(buf_name).copy_(buf)
-        fault = differences(Trainer("seg_fault", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
-                                                                                   cfg["training_hyperparams"]), direct)
-        close_loader(val_loader)
-        print(f"[15d] {recipe} evaluate_checkpoint(ckpt_best, epoch {best['epoch']}, fp32): {json.dumps(evaluated)}; "
-              f"|difference| to Trainer.evaluate of models.get(checkpoint_path=ckpt_best.pth) (Loss relative): "
-              f"{json.dumps(diffs)}, limit {RECIPE_EVAL_TOL}; planted fault (a fresh model's BN statistics): "
-              f"{json.dumps(fault)}")
-        check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"{recipe} evaluate_checkpoint differs from Trainer.evaluate: {diffs}")
-        check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the {recipe} evaluate_checkpoint gate: {fault}")
+        # the planted fault: a fresh model's BN statistics (the live weights would not do: after
+        # one step the EMA equals them, its first decay being 0)
+        check_evaluate_checkpoint(torch, cfg, cfg["experiment_name"], trainer.ckpt_dir, ckpt_root, "15d", fault="bn")
         step_before = trainer.train_state.step
         _, resumed = Trainer.resume_experiment(cfg["experiment_name"], ckpt_root_dir=ckpt_root)
         check(resumed.train_loss_history == [] and resumed.train_state.step == step_before,
               f"resume_experiment of a finished {recipe} run took a step")
         close_loader(loader.loader)
-        del trainer, resumed, model, best, initial, live, fresh
+        del trainer, resumed, initial, live
         torch.cuda.empty_cache()
 
 
@@ -2788,16 +2809,16 @@ def phase_zoo_train(torch, np):
     del images, targets
 
 
-def write_coco_layout(rf100_root, coco_root):
-    """A COCO2017-layout copy of phase 11's train split (``annotations/instances_train2017.json``
-    and ``images/train2017``)."""
+def write_coco_splits(rf100_root, coco_root):
+    """A COCO2017-layout copy of phase 11's train and valid splits."""
     import shutil
 
-    src = os.path.join(rf100_root, "synthetic", "train")
     os.makedirs(os.path.join(coco_root, "annotations"))
-    shutil.copytree(src, os.path.join(coco_root, "images", "train2017"))
-    shutil.copy(os.path.join(src, "_annotations.coco.json"),
-                os.path.join(coco_root, "annotations", "instances_train2017.json"))
+    for split, coco_split in (("train", "train2017"), ("valid", "val2017")):
+        src = os.path.join(rf100_root, "synthetic", split)
+        shutil.copytree(src, os.path.join(coco_root, "images", coco_split))
+        shutil.copy(os.path.join(src, "_annotations.coco.json"),
+                    os.path.join(coco_root, "annotations", f"instances_{coco_split}.json"))
 
 
 def phase_zoo_recipes(torch, np, nms_exact, root):
@@ -2805,7 +2826,7 @@ def phase_zoo_recipes(torch, np, nms_exact, root):
     epochs of b16, bf16, 8 workers), both stage switches cut to epoch 1; evaluate_checkpoint
     held to a direct Trainer.evaluate, resume_experiment; then coco2017_train_ppyoloe with
     multiscale over a COCO-layout copy. Returns K1's launches in the two runs."""
-    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch import train_from_recipe
     from super_gradients_tpu_torch.common import config
     from super_gradients_tpu_torch.training import Trainer, callbacks, dataloaders
     from super_gradients_tpu_torch.training.losses import PPYoloELoss, YoloXDetectionLoss
@@ -2864,33 +2885,12 @@ def phase_zoo_recipes(torch, np, nms_exact, root):
         _, resumed = Trainer.resume_experiment(recipe, ckpt_root_dir=ckpt_root)
         check(resumed.train_loss_history == [] and resumed.train_state.step == trainer.train_state.step,
               f"{recipe}: resume_experiment took a step")
-        best_path = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
-        best = torch.load(best_path, map_location="cpu", weights_only=True)
-        evaluated = Trainer.evaluate_checkpoint(recipe, ckpt_root_dir=ckpt_root, ckpt_name="ckpt_best")
-
-        def differences(a, b):  # |a - b| of each metric, of Loss relative to b
-            return {k: abs(a[k] - b[k]) / (abs(b[k]) if k == "Loss" else 1.0) for k in b}
-
-        model = models.get(cfg["architecture"], num_classes=cfg["num_classes"], arch_params=cfg.get("arch_params"),
-                           checkpoint_path=best_path)
-        val_loader = Trainer._loader_from_cfg(cfg, "val")
-        direct = Trainer(f"{recipe}_direct", ckpt_root_dir=ckpt_root).evaluate(model, val_loader,
-                                                                               cfg["training_hyperparams"])
-        diffs = differences(evaluated, direct)
-        model.net.load_state_dict(best["net"])  # planted fault: the live weights where the EMA's belong
-        fault = differences(Trainer(f"{recipe}_fault", ckpt_root_dir=ckpt_root).evaluate(
-            model, val_loader, cfg["training_hyperparams"]), direct)
-        close_loader(val_loader)
-        print(f"[16f] {recipe} resume_experiment: no step; evaluate_checkpoint(ckpt_best, epoch {best['epoch']}): "
-              f"{json.dumps(evaluated)}; |difference| to a direct Trainer.evaluate (Loss relative): {json.dumps(diffs)}, "
-              f"limit {RECIPE_EVAL_TOL}; planted fault (live weights for the EMA's): {json.dumps(fault)}")
-        check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"{recipe} evaluate_checkpoint differs: {diffs}")
-        check(max(fault.values()) > RECIPE_EVAL_TOL, f"the planted fault passes the {recipe} gate: {fault}")
-        del trainer, resumed, model, best
-        torch.cuda.empty_cache()
+        print(f"[16f] {recipe} resume_experiment: no step")
+        check_evaluate_checkpoint(torch, cfg, recipe, trainer.ckpt_dir, ckpt_root, "16f")
+        del trainer, resumed
 
     coco_root = os.path.join(root, "coco")
-    write_coco_layout(data_root, coco_root)
+    write_coco_splits(data_root, coco_root)
     loader = dataloaders.get("coco2017_train_ppyoloe", dataset_params={"data_dir": coco_root, "batch_size": 16,
                                                                      "multiscale": True})
     shapes = []
@@ -2903,6 +2903,448 @@ def phase_zoo_recipes(torch, np, nms_exact, root):
     print(f"[16f] coco2017_train_ppyoloe (multiscale) over a COCO-layout copy of the train split: batches on the card "
           f"{shapes}")
     return total
+
+
+# ------------------------------------------------------------------ phase 17: MobileNet and SSD
+
+# super_gradients_tpu/recipes/coco2017_ssd_lite_mobilenet_v2.yaml's training_hyperparams, bf16
+COCO_SSD = dict(
+    initial_lr=0.02, lr_mode="CosineLRScheduler", cosine_final_lr_ratio=0.01, lr_warmup_epochs=0,
+    zero_weight_decay_on_bias_and_bn=True, loss="SSDLoss", criterion_params={"image_size": 320}, optimizer="SGD",
+    optimizer_params={"momentum": 0.9, "weight_decay": 4e-5}, ema=True, mixed_precision=True,
+    valid_metrics_list=[{"DetectionMetrics_050": {"num_cls": 80, "nms_mode": "exact"}}], metric_to_watch="mAP@0.50",
+)
+# the BN statistics of 17a's models are set on this many noise images (as tests/test_torch_ssd.py
+# sets them): models.get's two-image calibration leaves the lite heads' BNs on the 3x3 and 2x2
+# levels 18 and 8 values a channel, which amplifies fp32 rounding between the two devices
+SSD_CALIBRATION_IMAGES = 16
+# 17a's score thresholds, both gated: the predict default, at which the random-init SSD passes
+# ~90% of its 3,234 x 81 (anchor, column) pairs, so the 1,024-candidate and 300-detection caps
+# bind; and 0.95, at which ~90-170 candidates an image pass (CPU count on phase 3's request),
+# so neither cap binds and every candidate and detection is compared
+SSD_CONFS = (0.25, 0.95)
+
+
+def ssd_pair(torch, models):
+    """(card model, CPU model) of SSD-lite-MobileNetV2, 80 classes, 320, seed 0, the same weights
+    and BN statistics set on ``SSD_CALIBRATION_IMAGES`` noise images."""
+    from super_gradients_tpu_torch.models.model_factory import _calibrate_batch_norm
+
+    cpu_model = models.get("ssd_lite_mobilenet_v2", num_classes=80, seed=0, device="cpu")
+    _calibrate_batch_norm(cpu_model.net, torch.Generator().manual_seed(3), (SSD_CALIBRATION_IMAGES, 3, 320, 320))
+    model = models.get("ssd_lite_mobilenet_v2", num_classes=80, seed=0, device="cuda")
+    model.load_state_dict({k: v.cuda() for k, v in cpu_model.net.state_dict().items()})
+    return model, cpu_model
+
+
+def phase_mobilenet_ssd(torch, np, nms_exact, matched_fraction, root):
+    """Phase 17: SSD-lite-MobileNetV2 (80 classes, 320) and MobileNetV3-large (1000 classes,
+    224) at full width, seed 0. Returns (K1 launches on the main paths, the largest K1-vs-plain
+    difference)."""
+    t_phase = time.perf_counter()
+    launches, max_err = phase_ssd_predict(torch, np, nms_exact, matched_fraction)
+    print(f"[17a-c] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_ssd_train(torch, np)
+    print(f"[17d] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_mobilenet_predict(torch, np, nms_exact)
+    print(f"[17e] seconds {time.perf_counter() - t_phase:.1f}")
+    launches += phase_ssd_recipe(torch, np, nms_exact, root)
+    print(f"[17f] seconds {time.perf_counter() - t_phase:.1f}")
+    launches += phase_ssd_pretrained(torch, np, nms_exact, root)
+    print(f"[17] K1 launches in phase 17's main paths: {launches}; phase seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, max_err
+
+
+def phase_ssd_predict(torch, np, nms_exact, matched_fraction):
+    """(a) fp32 predict() GPU vs CPU, (b) K1 on SSD's captured candidates, (c) fused bf16
+    predict_batch_tensor timing."""
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models import sg_model
+    from super_gradients_tpu_torch.ops import nms as nms_module
+    from super_gradients_tpu_torch.ops.bbox import box_iou
+
+    model, cpu_model = ssd_pair(torch, models)
+    images = request_images(np, 3)
+    pil_image = Image.fromarray(request_images(np, 5)[1])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    nms_exact.exact_nms_keep.launches = 0
+    gpu, cpu = {}, {}
+    try:
+        for conf in SSD_CONFS:
+            kw = dict(bf16=False, fuse_model=False, nms_mode="exact", conf=conf)
+            gpu[conf] = list(model.predict(images, **kw)) + list(model.predict(pil_image, **kw))
+            cpu[conf] = list(cpu_model.predict(images, **kw)) + list(cpu_model.predict(pil_image, **kw))
+        launches = nms_exact.exact_nms_keep.launches
+        _, batches, _ = cpu_model._prep_host_batches(images, 4)
+        x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            out, g_logits = cpu_model.net(x), model.net(x.cuda()).cls_logits.cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    check(launches == 4, f"SSD predict launched K1 {launches} times, expected one a batch (4)")
+    for conf in SSD_CONFS:
+        check_predictions(np, gpu[conf], 5, f"ssd_lite_mobilenet_v2 fp32 predict at conf {conf}")
+    high = max(SSD_CONFS)
+    check(max(len(g) for g in gpu[high] + cpu[high]) < model._default_max_predictions,
+          f"17a's detections at conf {high} reached the cap")
+    n_candidates = int((torch.sigmoid(out.cls_logits) > high).sum(dim=(1, 2)).max())
+    check(n_candidates < model._default_nms_top_k, f"17a's candidates at conf {high} reached the cap ({n_candidates})")
+    # the score of the last candidate that the 1,024 cap keeps, per image of the request
+    cap_scores = [torch.sigmoid(lg.flatten(1)).topk(model._default_nms_top_k).values[:, -1].tolist()
+                  for lg in (g_logits, out.cls_logits)]
+    fractions = {}
+    for conf in SSD_CONFS:
+        g, c = gpu[conf], cpu[conf]
+        fractions[conf] = [matched_fraction(a, b, 0.99) for a, b in zip(g, c)]
+        zero_area = [int((np.diff(a.bboxes_xyxy[:, 0::2], axis=1) * np.diff(a.bboxes_xyxy[:, 1::2], axis=1) <= 0).sum())
+                     for a in g]
+        causes = [(i, "GPU", unmatched_causes(torch, np, box_iou, a, b, 0.99)) for i, (a, b) in enumerate(zip(g, c))]
+        causes += [(i, "CPU", unmatched_causes(torch, np, box_iou, b, a, 0.99)) for i, (a, b) in enumerate(zip(g, c))]
+        print(f"[17a] ssd_lite_mobilenet_v2 80 classes 320 fp32 predict GPU vs CPU (TF32 off, exact NMS, conf {conf}"
+              f"{', the predict default' if conf == model._default_nms_conf else ''}; BN statistics on "
+              f"{SSD_CALIBRATION_IMAGES} noise images), 4-image request + a PIL image: detections {[len(a) for a in g]} "
+              f"vs {[len(b) for b in c]}; matched fractions at IoU 0.99 {[round(f, 4) for f in fractions[conf]]}; "
+              f"zero-area boxes (clipped off the image, matched as the same box) on the card {zero_area}")
+        for i, side, rows in causes:
+            for row in rows:
+                print(f"[17a]   conf {conf}, image {i}: a {side} detection without a partner: {json.dumps(row)}")
+    print(f"[17a] at conf {high} at most {n_candidates} candidates an image of the request; the 1,024th "
+          f"candidate's score per image of the request: GPU {cap_scores[0]}, CPU {cap_scores[1]}; labels up to "
+          f"{max(int(a.labels.max()) for a in gpu[min(SSD_CONFS)])} (the raw confs' sigmoid, background column 0 "
+          f"included, as in JAX); raw conf logits std {float(out.cls_logits.std()):.3f}, softmax class probabilities "
+          f"max {float(out.pred_scores.max()):.4f}, sigmoid of the logits above 0.99: "
+          f"{float((torch.sigmoid(out.cls_logits) > 0.99).float().mean()):.4f}; K1 launches {launches}")
+    check(min(min(f) for f in fractions.values()) >= 0.99, f"SSD predict GPU vs CPU matched fractions {fractions}")
+    del cpu, cpu_model, out, g_logits
+
+    max_err = 0.0
+    for b in (8, 32):
+        batch = torch.rand((b, 320, 320, 3), generator=torch.Generator().manual_seed(3)).cuda()
+        call = lambda: model.predict_batch_tensor(batch)  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        iters = 10
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            res = call()
+        res.num_detections.cpu()
+        dt = time.perf_counter() - t0
+        net = model._deploy_net(True, True)
+        x = batch.to(torch.bfloat16).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: net(x), iters=10)
+            o = net(x)
+            nms_call = lambda: nms_module.batched_nms(  # noqa: E731
+                o.pred_bboxes, o.cls_logits, score_threshold=0.25, iou_threshold=0.7, nms_top_k=1024,
+                max_predictions=300, mode="exact", scores_are_logits=True)
+            nms_ms = cuda_ms(nms_call, iters=20)
+        events, wall_ms = profiled(torch, call, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in events) / 1e3 / 5
+        print(f"[17c] ssd_lite_mobilenet_v2 fused bf16 predict_batch_tensor b{b} at 320: {b * iters / dt:.1f} img/s "
+              f"({1e3 * dt / iters:.2f} ms/batch, host clock); forward {forward_ms:.2f} ms, batched_nms {nms_ms:.4f} ms "
+              f"(CUDA events); profiled: wall {wall_ms:.2f} ms a batch, device busy {busy_ms:.2f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}")
+        nms_args, nms_kwargs = capture_call(sg_model, "batched_nms", call)
+        check(nms_kwargs["scores_are_logits"] is True and nms_args[1].shape[-1] == 81,
+              "SSD predict must suppress on the 81 raw conf columns, as the JAX predict program does")
+        with torch.inference_mode():
+            (boxes, valid, t), _ = capture_call(nms_module, "exact_nms_keep",
+                                                lambda: nms_module.batched_nms(*nms_args, **nms_kwargs))
+            max_err = max(max_err, check_k1_equal(torch, nms_exact, f"SSD candidates b{b}", boxes, valid, t))
+            n_kept = nms_exact.exact_nms_keep(boxes, valid, t).sum(dim=1)
+            print(f"[17b] ssd_lite_mobilenet_v2 b{b} candidates (logits, 81 columns): K={boxes.shape[1]}, valid per "
+                  f"image {valid.sum(dim=1).tolist()}, kept per image {n_kept.tolist()}; K1 bit-equal to the plain "
+                  f"version")
+            time_k1(torch, nms_exact, f"ssd_lite_mobilenet_v2 b{b} candidates", boxes, valid, t, phase="17b")
+        del batch, res, o, boxes, valid, nms_args, nms_kwargs
+    del model
+    torch.cuda.empty_cache()
+    return launches, max_err
+
+
+def _ssd_one_step(torch, model, images, targets, fixed=None):
+    """Forward, loss and backward of one fp32 SGD SSD step, with the matching and the mined
+    negatives of ``fixed`` (another run's) where given; returns this run's own (matching, mined
+    negatives), its loss components and its gradients (fp64, on the CPU)."""
+    from super_gradients_tpu_torch.training import Trainer
+
+    params = dict(COCO_SSD, ema=False, mixed_precision=False, initial_lr=1e-3)
+    step = Trainer("chip_smoke_ssd_fp32").prepare(model, params, steps_per_epoch=1)
+    criterion, seen = step.criterion, {}
+    match, mine = criterion.match, criterion.hard_negatives
+
+    def fixed_match(t):
+        seen["match"] = match(t)
+        return seen["match"] if fixed is None else tuple(x.to(t.device) for x in fixed[0])
+
+    def fixed_mine(ce, pos):
+        seen["neg"] = mine(ce, seen["match"][0])
+        return seen["neg"] if fixed is None else fixed[1].to(ce.device, ce.dtype)
+
+    criterion.match, criterion.hard_negatives = fixed_match, fixed_mine
+    loss, comps = step.loss(step.forward(images), targets)
+    step.backward(loss)
+    grads = {k: p.grad.detach().double().cpu() for k, p in step.state.net.named_parameters() if p.grad is not None}
+    comps = {k: float(v.detach()) for k, v in dict(comps, loss=loss).items()}
+    return (tuple(x.cpu() for x in seen["match"]), seen["neg"].cpu()), comps, grads
+
+
+def phase_ssd_train(torch, np):
+    """(d) one fp32 SGD SSD-lite step at b2 on the card and on the CPU held to an fp64 CPU step
+    (phase 8's rule: the matching and the mined negatives compared, then the fp64 ones shared),
+    then the bf16 step at b32 by part with SSDLoss apart, idle share and peak memory."""
+    import types
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu_model = models.get("ssd_lite_mobilenet_v2", num_classes=80, seed=0, device="cpu")
+        dataset = RandomDetectionDataset(num_samples=2, image_size=(320, 320), num_classes=80, max_boxes=120)
+        images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(2))))
+        runs = {}
+        for name, device, dtype in (("fp64 CPU", "cpu", torch.float64), ("fp32 CPU", "cpu", torch.float32),
+                                    ("fp32 GPU", "cuda", torch.float32)):
+            net = copy.deepcopy(cpu_model.net).to(device, dtype)
+            m = types.SimpleNamespace(net=net, device=torch.device(device))
+            x, t = images.to(device, dtype), targets.to(device, dtype)
+            if device == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            runs[name] = _ssd_one_step(torch, m, x, t, fixed=runs["fp64 CPU"][0] if runs else None)
+            del net, m
+        (match64, neg64), ref_comps, ref_grads = runs["fp64 CPU"]
+        for name in ("fp32 CPU", "fp32 GPU"):
+            (match, neg), _, _ = runs[name]
+            pos_diff = int((match[0] != match64[0]).sum())
+            neg_diff = int((neg != neg64).sum())
+            print(f"[17d] ssd_lite_mobilenet_v2 {name}: {pos_diff} anchors matched otherwise and {neg_diff} other "
+                  f"mined negatives than fp64 CPU ({int(match64[0].sum())} positives, {int(neg64.sum())} negatives); "
+                  f"all runs take the fp64 matching and mining")
+        for key in ("loc_loss", "conf_loss", "loss"):
+            errs = {name: abs(runs[name][1][key] - ref_comps[key]) for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[17d] ssd_lite_mobilenet_v2 {key} {ref_comps[key]:.6f} (fp64 CPU): GPU err {errs['fp32 GPU']:.3g}, "
+                  f"CPU err {errs['fp32 CPU']:.3g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-6 * abs(ref_comps[key]),
+                  f"SSD GPU fp32 {key} more than twice as far from fp64 as the CPU's")
+        for group in ("backbone", "neck", "heads", ""):
+            keys = [k for k in ref_grads if k.startswith(group)]
+            norm = float(sum((ref_grads[k] ** 2).sum() for k in keys) ** 0.5)
+            errs = {name: float(sum(((runs[name][2][k] - ref_grads[k]) ** 2).sum() for k in keys) ** 0.5)
+                    for name in ("fp32 GPU", "fp32 CPU")}
+            print(f"[17d] ssd_lite_mobilenet_v2 gradients {group or 'all'} (norm {norm:.4g}): GPU L2 err "
+                  f"{errs['fp32 GPU']:.4g}, CPU L2 err {errs['fp32 CPU']:.4g}")
+            check(errs["fp32 GPU"] <= 2 * errs["fp32 CPU"] + 1e-7 * norm,
+                  f"SSD GPU fp32 gradients ({group or 'all'}) more than twice as far from fp64 as the CPU's")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    del runs, cpu_model
+
+    b = 32
+    dataset = RandomDetectionDataset(num_samples=b, image_size=(320, 320), num_classes=80, max_boxes=120)
+    images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(b))))
+    images = images.cuda().contiguous(memory_format=torch.channels_last)
+    targets = targets.cuda()
+    model = models.get("ssd_lite_mobilenet_v2", num_classes=80, seed=0, device="cuda")
+    step = Trainer("chip_smoke_ssd_timing").prepare(model, COCO_SSD, steps_per_epoch=100)
+
+    def run(events=None):
+        marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+        marks[0]()
+        out = step.forward(images)
+        marks[1]()
+        loss, _ = step.loss(out, targets)
+        marks[2]()
+        step.backward(loss)
+        marks[3]()
+        step.update()
+        marks[4]()
+        return loss
+
+    for _ in range(3):
+        run()
+    iters = 10
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+    for ev in events:
+        run(ev)
+    torch.cuda.synchronize()
+    parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+    step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+    with torch.no_grad():
+        out = step.forward(images)
+        match_ms = cuda_ms(lambda: step.criterion.match(targets), iters=10)
+    prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+    busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(bool(torch.isfinite(loss)), f"SSD b{b} train loss not finite")
+    print(f"[17d] ssd_lite_mobilenet_v2 bf16 train step b{b} at 320: {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.1f} "
+          f"img/s (CUDA events); forward {parts[0]:.2f}, SSDLoss {parts[1]:.2f} (of which the matching "
+          f"{match_ms:.2f}), backward {parts[2]:.2f}, optimizer+EMA {parts[3]:.2f} ms; profiled (device activity only): "
+          f"wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak "
+          f"memory {peak:.2f} GiB")
+    del step, model, loss, out, prof_events, images, targets
+    torch.cuda.empty_cache()
+
+
+def phase_mobilenet_predict(torch, np, nms_exact):
+    """(e) MobileNetV3-large, 1000 classes, 224: fp32 predict() GPU vs CPU (TF32 off, the head
+    scaled to a logit std of 2 as phase 14a does; top-1 equal, top-5 probabilities within
+    CLS_CONF_TOL, the card's fp32 logits within twice the CPU's distance to an fp64 run), then
+    the fp32 forward at b32 and b128."""
+    from PIL import Image
+
+    from super_gradients_tpu_torch import models
+
+    launches_before = nms_exact.exact_nms_keep.launches
+    model = models.get("mobilenet_v3_large", num_classes=1000, seed=0, device="cuda")
+    cpu_model = models.get("mobilenet_v3_large", num_classes=1000, seed=0, device="cpu")
+    images = request_images(np, 3)
+    pil_image = Image.fromarray(request_images(np, 5)[1])
+    _, batches, _ = cpu_model._prep_host_batches(images, 4)
+    with torch.inference_mode():
+        std = float(cpu_model.net(torch.from_numpy(batches[0]).permute(0, 3, 1, 2)).std())
+    with torch.no_grad():
+        for m in (model, cpu_model):
+            m.net.classifier[3].weight.mul_(2.0 / std)
+            m.net.classifier[3].bias.mul_(2.0 / std)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = list(model.predict(images)) + list(model.predict(pil_image))
+        _, batches, _ = model._prep_host_batches(images + [np.asarray(pil_image)], 5)
+        x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            g_logits = model._deploy_net(False, False)(x.cuda()).double().cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    cpu = list(cpu_model.predict(images)) + list(cpu_model.predict(pil_image))
+    with torch.inference_mode():
+        c_logits = cpu_model.net(x).double()
+        r_logits = copy.deepcopy(cpu_model.net).double()(x.double())
+    top1 = [(g.prediction, c.prediction) for g, c in zip(gpu, cpu)]
+    conf_err = max(float(np.abs(g.confidence - c.confidence).max()) for g, c in zip(gpu, cpu))
+    e_gpu, e_cpu = float((g_logits - r_logits).abs().max()), float((c_logits - r_logits).abs().max())
+    print(f"[17e] mobilenet_v3_large 1000 classes 224 fp32 predict GPU vs CPU (TF32 off; head scaled by "
+          f"{2.0 / std:.3e}), 4-image request + a PIL image: top-1 {top1} ({len(set(top1))} distinct: the random "
+          f"init's logits vary little from image to image); top-5 probabilities |GPU - CPU| max {conf_err:.3e} (limit "
+          f"{CLS_CONF_TOL}); logits |GPU - fp64| max {e_gpu:.3e}, |CPU - fp64| max {e_cpu:.3e} (limit: twice the CPU's)")
+    check(all(a == b for a, b in top1), f"MobileNetV3 GPU and CPU top-1 differ: {top1}")
+    check(conf_err <= CLS_CONF_TOL, f"MobileNetV3 top-5 probabilities differ by {conf_err} between GPU and CPU")
+    check(e_gpu <= 2 * e_cpu, f"MobileNetV3 fp32 logits on the card {e_gpu} from fp64, more than twice the CPU's {e_cpu}")
+    del cpu_model, cpu
+    tf32 = f"cuDNN TF32 {torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32}"
+    net = model._deploy_net(False, False)
+    for b in (32, 128):
+        batch = torch.randn((b, 3, 224, 224), generator=torch.Generator().manual_seed(b)).cuda()
+        batch = batch.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            call = lambda: net(batch)  # noqa: E731
+            ms = cuda_ms(call, iters=10)
+            events, wall_ms = profiled(torch, call, 5, with_cpu=False)
+        busy_ms = sum(_self_device_us(e) for e in events) / 1e3 / 5
+        print(f"[17e] mobilenet_v3_large fp32 forward b{b} at 224 ({tf32}, channels_last): {ms:.2f} ms a batch (CUDA "
+              f"events), {b * 1e3 / ms:.1f} img/s; profiled: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+              f"idle share {1 - busy_ms / wall_ms:.3f}")
+        del batch, events
+    del model, net
+    torch.cuda.empty_cache()
+    launched = nms_exact.exact_nms_keep.launches - launches_before
+    check(launched == 0, f"MobileNet predict launched K1 {launched} times; classification has no NMS")
+
+
+def phase_ssd_recipe(torch, np, nms_exact, root):
+    """(f) train_from_recipe of coco2017_ssd_lite_mobilenet_v2 on a COCO-layout copy of phase
+    11's PNGs at 320 (2 epochs of b16), K1 once a validation batch, evaluate_checkpoint held to
+    a direct Trainer.evaluate with a planted fault beyond it. Returns K1's launches."""
+    from super_gradients_tpu_torch import train_from_recipe
+    from super_gradients_tpu_torch.common import config
+
+    data_root, coco_root, ckpt_root = (os.path.join(root, d) for d in ("rf100", "coco", "ckpt"))
+    n_boxes, n_crowd = make_rf100_dataset(np, data_root)
+    write_coco_splits(data_root, coco_root)
+    workers = min(8, os.cpu_count())
+    recipe = "coco2017_ssd_lite_mobilenet_v2"
+    cuts = [f"dataset_params.train_dataset_params.data_dir={coco_root}",
+            f"dataset_params.val_dataset_params.data_dir={coco_root}", "epochs=2", "batch_size=16",
+            "val_batch_size=16", f"num_workers={workers}", f"ckpt_root_dir={ckpt_root}"]
+    cfg = config.load_recipe(recipe, overrides=cuts)
+    nms_exact.exact_nms_keep.launches = 0
+    t0 = time.perf_counter()
+    model, trainer = train_from_recipe.main([f"--config-name={recipe}", *cuts])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = nms_exact.exact_nms_keep.launches
+    history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+    check(launches == 2 * 2, f"K1 launched {launches} times in {recipe}, expected one a validation batch (4)")
+    check(len(history) == 2 and all(np.isfinite(history)), f"{recipe} train losses {history}")
+    check(len(valid) == 2 and all(np.isfinite(list(v.values())).all() for v in valid), f"{recipe} validation {valid}")
+    check(model.class_names is not None and model.class_names[0] == "class_0",
+          f"{recipe}: the dataset's class names did not reach the model ({(model.class_names or [None])[:2]})")
+    print(f"[17f] recipe {recipe} through train_from_recipe.main on a COCO-layout copy of phase 11's dataset (64 train "
+          f"+ 32 valid PNGs, {n_boxes} boxes, {n_crowd} iscrowd): 2 epochs x {trainer.train_state.step // 2} steps of "
+          f"16 at 320, {workers} workers, {seconds:.1f} s; K1 launches {launches}; losses {history}; validation "
+          f"{json.dumps(valid)}; the model carries the dataset's class names")
+    check_evaluate_checkpoint(torch, cfg, recipe, trainer.ckpt_dir, ckpt_root, "17f")
+    print(f"[17f] K1 launches in the three evaluations: {nms_exact.exact_nms_keep.launches - launches}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ssd_pretrained(torch, np, nms_exact, root):
+    """(g) models.get("ssd_lite_mobilenet_v2", pretrained_weights="coco") from a temporary
+    $SG_PRETRAINED_DIR holding a .pth that the port wrote: the same predictions as the same file
+    through checkpoint_path=, and the COCO processing. Returns K1's launches of its predict."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models import pretrained_models
+    from super_gradients_tpu_torch.models.class_names import COCO_DETECTION_CLASSES_LIST
+
+    mirror = os.path.join(root, "pretrained")
+    os.makedirs(mirror)
+    path = os.path.join(mirror, os.path.basename(pretrained_models.get_pretrained_url("ssd_lite_mobilenet_v2", "coco")))
+    torch.save({"net": models.get("ssd_lite_mobilenet_v2", seed=5, device="cpu").net.state_dict()}, path)
+    before = os.environ.get("SG_PRETRAINED_DIR")
+    os.environ["SG_PRETRAINED_DIR"] = mirror
+    try:
+        pretrained = models.get("ssd_lite_mobilenet_v2", pretrained_weights="coco")
+    finally:
+        if before is None:
+            del os.environ["SG_PRETRAINED_DIR"]
+        else:
+            os.environ["SG_PRETRAINED_DIR"] = before
+    direct = models.get("ssd_lite_mobilenet_v2", checkpoint_path=path)
+    images = request_images(np, 3)
+    nms_exact.exact_nms_keep.launches = 0
+    got = pretrained.predict(images)
+    launches = nms_exact.exact_nms_keep.launches
+    ref = direct.predict(images)
+    same = all(np.array_equal(g.bboxes_xyxy, r.bboxes_xyxy) and np.array_equal(g.labels, r.labels)
+               and np.array_equal(g.confidence, r.confidence) for g, r in zip(got, ref))
+    steps = [type(p).__name__ for p in pretrained.get_processing_params().processings]
+    print(f"[17g] models.get('ssd_lite_mobilenet_v2', pretrained_weights='coco') from a temporary $SG_PRETRAINED_DIR "
+          f"({os.path.basename(path)}, written by the port from seed 5): predictions equal to the same file through "
+          f"checkpoint_path=: {same} ({[len(g) for g in got]} detections); class names COCO: "
+          f"{pretrained.class_names == COCO_DETECTION_CLASSES_LIST}; processing {steps}; K1 launches {launches}")
+    check(same and sum(len(g) for g in got) > 0, "pretrained_weights and checkpoint_path= predict differently")
+    check(pretrained.class_names == COCO_DETECTION_CLASSES_LIST, "the pretrained SSD lacks the COCO class names")
+    check(steps == ["DetectionLongestMaxSizeRescale", "DetectionCenterPadding", "StandardizeImage"],
+          f"the pretrained SSD's processing {steps}")
+    check(launches == 1, f"the pretrained SSD's predict launched K1 {launches} times, expected 1")
+    del pretrained, direct
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2922,7 +3364,7 @@ def main():
 
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     lib = build.build("nms_exact.cu")
     print(f"[1] K1 library {lib.name} ready in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
 
@@ -2954,14 +3396,20 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
         zoo_launches, zoo_err = phase_zoo(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou), root)
     max_err = max(max_err, zoo_err)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as root:
+        ssd_launches, ssd_err = phase_mobilenet_ssd(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou),
+                                                    root)
+    max_err = max(max_err, ssd_err)
 
+    print(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_script:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")
     k1 = timings[8, 1024]  # the predict path's shape, every candidate valid
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches + zoo_launches,
+        "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches + zoo_launches
+        + ssd_launches,
         "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)

@@ -1,16 +1,18 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
 ``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
-YOLO-NAS-POSE, the ResNet family, STDC classification and the STDC and PP-LiteSeg
-segmentation models).
+YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC and PP-LiteSeg
+segmentation models, MobileNet V1 / V2 / V3 and SSD).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
 of those rules (``YOLO_NAS_RULES``, ``PPYOLOE_RULES``, ``YOLOX_RULES``, ``YOLO_NAS_POSE_RULES``,
-``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``_GENERIC_RULES``,
-``_LEAF_MAP``) and inverts the layout transforms:
+``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
+``SSD_V1_RULES``, ``SSD_LITE_V2_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout
+transforms:
 
 - conv kernel HWIO -> OIHW;
-- dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
+- dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``, and a squeeze-excitation 1x1
+  conv ``[1, 1, in, out]`` -> the original's ``Linear`` weight ``[out, in]``;
 - conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``;
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
   plus a ``num_batches_tracked`` of 0 so that ``load_state_dict(strict=True)`` passes.
@@ -171,6 +173,92 @@ PPLITESEG_RULES: Rules = _stdc_backbone_rules("encoder.") + (
 )
 
 
+def _mnv2_block_index(m) -> str:
+    """A MobileNetV2 block's conv ``Sequential`` index: block 0 has no pointwise expansion,
+    which shifts the indices."""
+    i, child, leaf = int(m.group(1)), m.group(2), m.group(3)
+    if i == 0:
+        idx = {("depthwise", "conv"): 0, ("depthwise", "bn"): 1, ("project", "conv"): 3, ("project", "bn"): 4}
+    else:
+        idx = {("expand", "conv"): 0, ("expand", "bn"): 1, ("depthwise", "conv"): 3, ("depthwise", "bn"): 4,
+               ("project", "conv"): 6, ("project", "bn"): 7}
+    return f"features.{i + 1}.conv.{idx[(child, leaf)]}"
+
+
+# MobileNetV2 (copy of the JAX package's MOBILENET_V2_RULES): the classifier is Sequential(dropout, linear)
+MOBILENET_V2_RULES: Rules = (
+    (r"^block_(\d+)\.(expand|depthwise|project)\.(conv|bn)$", _mnv2_block_index),
+    (r"^stem\.conv$", "features.0.0"),
+    (r"^stem\.bn$", "features.0.1"),
+    (r"^head_conv\.conv$", "features.18.0"),
+    (r"^head_conv\.bn$", "features.18.1"),
+    (r"^classifier$", "classifier.1"),
+)
+
+# MobileNetV1 (copy of the JAX package's MOBILENET_V1_RULES)
+MOBILENET_V1_RULES: Rules = ((r"^layers_(\d+)_(conv\d|bn\d)$", r"layers.\1.\2"),)
+
+
+def _mnv3_block_index(m) -> str:
+    """A MobileNetV3 block's conv ``Sequential`` index: ``[pw, bn, act, dw, bn, SE, act, pwl, bn]``,
+    and ``[dw, bn, act, SE, pwl, bn]`` for block 0, which has no expansion."""
+    i, child, leaf = int(m.group(1)), m.group(2), m.group(3)
+    if i == 0:
+        table = {("depthwise", "conv"): 0, ("depthwise", "bn"): 1, ("project", "conv"): 4, ("project", "bn"): 5}
+    else:
+        table = {("expand", "conv"): 0, ("expand", "bn"): 1, ("depthwise", "conv"): 3, ("depthwise", "bn"): 4,
+                 ("project", "conv"): 7, ("project", "bn"): 8}
+    return f"features.{i + 1}.conv.{table[(child, leaf)]}"
+
+
+def _mnv3_se_index(m) -> str:
+    i, fc = int(m.group(1)), m.group(2)
+    return f"features.{i + 1}.conv.{3 if i == 0 else 5}.fc.{0 if fc == 'fc1' else 2}"
+
+
+# MobileNetV3 (copy of the JAX package's MOBILENET_V3_RULES)
+MOBILENET_V3_RULES: Rules = (
+    (r"^block_(\d+)\.(expand|depthwise|project)\.(conv|bn)$", _mnv3_block_index),
+    (r"^block_(\d+)\.se\.(fc1|fc2)$", _mnv3_se_index),
+    (r"^stem\.conv$", "features.0.0"),
+    (r"^stem\.bn$", "features.0.1"),
+    (r"^head_conv\.conv$", "conv.0"),
+    (r"^head_conv\.bn$", "conv.1"),
+    (r"^pre_classifier$", "classifier.0"),
+    (r"^classifier$", "classifier.3"),
+)
+
+# SSD (copies of the JAX package's SSD_V1_RULES / SSD_LITE_V2_RULES): the trunk under
+# backbone.multi_output_backbone.0, the neck blocks under neck.neck_blocks, the heads under heads
+_SSD_BB = "backbone.multi_output_backbone.0"
+_SSD_V1_NECK_IDX = {"conv1": 0, "bn1": 1, "conv2": 3, "bn2": 4}  # [conv1x1, BN, ReLU, convK, BN, ReLU]
+
+SSD_V1_RULES: Rules = (
+    (r"^(conv1|bn1)$", _SSD_BB + r".\1"),
+    (r"^layers_(\d+)_(conv\d|bn\d)$", _SSD_BB + r".layers.\1.\2"),
+    (r"^neck_(\d+)_(conv\d|bn\d)$", lambda m: f"neck.neck_blocks.{m.group(1)}.{_SSD_V1_NECK_IDX[m.group(2)]}"),
+    (r"^(loc|conf)_(\d+)$", r"heads.\1.\2"),
+)
+
+_SSD_V2_NECK_IDX = {("expand", "conv"): 0, ("expand", "bn"): 1, ("depthwise", "conv"): 3, ("depthwise", "bn"): 4,
+                    ("project", "conv"): 6, ("project", "bn"): 7}
+
+SSD_LITE_V2_RULES: Rules = (
+    (r"^block_(\d+)\.(expand|depthwise|project)\.(conv|bn)$", lambda m: _SSD_BB + "." + _mnv2_block_index(m)),
+    (r"^stem\.conv$", _SSD_BB + ".features.0.0"),
+    (r"^stem\.bn$", _SSD_BB + ".features.0.1"),
+    (r"^head_conv\.conv$", _SSD_BB + ".features.18.0"),
+    (r"^head_conv\.bn$", _SSD_BB + ".features.18.1"),
+    (r"^neck_(\d+)\.(expand|depthwise|project)\.(conv|bn)$",
+     lambda m: f"neck.neck_blocks.{m.group(1)}.conv.{_SSD_V2_NECK_IDX[(m.group(2), m.group(3))]}"),
+    # the separable head: [dw conv (with bias), BN, ReLU, pw conv]
+    (r"^(loc|conf)_(\d+)_dw$", r"heads.\1.\2.0"),
+    (r"^(loc|conf)_(\d+)_dwbn$", r"heads.\1.\2.1"),
+    (r"^(loc|conf)_(\d+)_pw$", r"heads.\1.\2.3"),
+    (r"^(loc|conf)_(\d+)$", r"heads.\1.\2"),
+)
+
+
 def _translate(path: Tuple[str, ...], rules: Rules) -> str:
     *parents, leaf = path
     name = ".".join(parents)
@@ -187,6 +275,8 @@ def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
         return value
     if value.ndim == 2:
         return value.T  # dense [in, out] -> Linear [out, in]
+    if len(path) >= 3 and path[-3] == "se":
+        return value[0, 0].T  # the JAX SE's 1x1 convs [1, 1, in, out] -> the original's Linear [out, in]
     if value.ndim != 4:
         raise ValueError(f"{'/'.join(path)}: only conv and dense kernels are converted, got shape {value.shape}")
     if "upsample" in path[-2]:

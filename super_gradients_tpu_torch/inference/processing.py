@@ -1,7 +1,8 @@
 """Host-side image processing for predict (the subset of
 ``super_gradients_tpu/inference/processing.py`` that the YOLO-NAS and YOLO-NAS-POSE
 COCO processing, the ImageNet classification processing and the segmentation
-processing use).
+processing use, and ``get_pretrained_processing_params`` with the published
+parameters of the families the port has).
 
 numpy in, numpy out, one image at a time. The letterbox resize is the JAX
 package's call, ``cv2.resize(..., INTER_LINEAR)``, wherever cv2 imports (cv2 is
@@ -31,6 +32,8 @@ class ProcessingMetadata:
     original_hw: Tuple[int, int] = (0, 0)
     pad_bottom: int = 0
     pad_right: int = 0
+    scale_h: float = 1.0  # DetectionRescale's two scales
+    scale_w: float = 1.0
 
 
 class Processing:
@@ -115,6 +118,28 @@ class DetectionLongestMaxSizeRescale(Processing):
     def postprocess_keypoints(self, kpts, meta):
         out = kpts.copy()
         out[..., :2] = out[..., :2] / meta.scale
+        return out
+
+
+class DetectionRescale(Processing):
+    """A direct resize to output_shape that does not keep the aspect ratio."""
+
+    def __init__(self, output_shape: Sequence[int]):
+        self.output_shape = tuple(output_shape)
+
+    def preprocess_image(self, image):
+        h, w = image.shape[:2]
+        th, tw = self.output_shape
+        out = resize(image, (th, tw)) if (h, w) != (th, tw) else image
+        return out, ProcessingMetadata(original_hw=(h, w), scale_h=th / h, scale_w=tw / w)
+
+    def postprocess_boxes(self, boxes, meta):
+        return boxes / np.array([meta.scale_w, meta.scale_h, meta.scale_w, meta.scale_h], dtype=np.float32)
+
+    def postprocess_keypoints(self, kpts, meta):
+        out = kpts.copy()
+        out[..., 0] = out[..., 0] / meta.scale_w
+        out[..., 1] = out[..., 1] / meta.scale_h
         return out
 
 
@@ -393,6 +418,49 @@ def default_yolo_nas_coco_processing(image_size: int = 640) -> ComposeProcessing
     )
 
 
+def _coco_class_names() -> List[str]:
+    from super_gradients_tpu_torch.models.class_names import COCO_DETECTION_CLASSES_LIST
+
+    return COCO_DETECTION_CLASSES_LIST
+
+
+def default_yolox_coco_processing_params() -> Dict[str, Any]:
+    """The published YOLOX COCO processing parameters: BGR, longest side 640, bottom-right
+    padding with 114, raw 0-255 values, IoU 0.65, conf 0.1."""
+    return dict(
+        class_names=_coco_class_names(),
+        image_processor=ComposeProcessing(
+            [ReverseImageChannels(), DetectionLongestMaxSizeRescale((640, 640)), DetectionBottomRightPadding((640, 640), 114)]
+        ),
+        iou=0.65,
+        conf=0.1,
+    )
+
+
+def default_ppyoloe_coco_processing_params() -> Dict[str, Any]:
+    """The published PP-YOLOE COCO processing parameters: BGR, a direct resize to 640x640,
+    the mean and std of 0-255 values, IoU 0.65, conf 0.5."""
+    return dict(
+        class_names=_coco_class_names(),
+        image_processor=ComposeProcessing(
+            [
+                ReverseImageChannels(),
+                DetectionRescale((640, 640)),
+                NormalizeImage(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375]),
+            ]
+        ),
+        iou=0.65,
+        conf=0.5,
+    )
+
+
+def default_yolo_nas_coco_processing_params() -> Dict[str, Any]:
+    """The published YOLO-NAS COCO processing parameters: :func:`default_yolo_nas_coco_processing`
+    at 640, IoU 0.7, conf 0.25."""
+    return dict(class_names=_coco_class_names(), image_processor=default_yolo_nas_coco_processing(640), iou=0.7,
+                conf=0.25)
+
+
 IMAGENET_MEAN = [0.485, 0.456, 0.406]
 IMAGENET_STD = [0.229, 0.224, 0.225]
 
@@ -484,3 +552,25 @@ def default_cityscapes_processing_params(scale: float = 1.0) -> Dict[str, Any]:
             ]
         ),
     )
+
+
+def get_pretrained_processing_params(model_name: str, pretrained_weights: str) -> Dict[str, Any]:
+    """The processing parameters a published checkpoint was evaluated with (the JAX
+    package's table, for the families the port registers; ``{}`` where it names none)."""
+    if pretrained_weights == "coco":
+        if "yolox" in model_name:
+            return default_yolox_coco_processing_params()
+        if "ppyoloe" in model_name or "pp_yoloe" in model_name:
+            return default_ppyoloe_coco_processing_params()
+        if "yolo_nas" in model_name:
+            return default_yolo_nas_coco_processing_params()
+    if pretrained_weights == "coco_pose" and model_name.startswith("yolo_nas_pose"):
+        return default_yolo_nas_pose_coco_processing_params()
+    if pretrained_weights == "imagenet":
+        return default_imagenet_processing_params()
+    if pretrained_weights == "cityscapes":
+        if model_name in {"pp_lite_t_seg75", "pp_lite_b_seg75", "stdc1_seg75", "stdc2_seg75"}:
+            return default_cityscapes_processing_params(0.75)
+        if model_name in {"pp_lite_t_seg50", "pp_lite_b_seg50", "stdc1_seg50", "stdc2_seg50"}:
+            return default_cityscapes_processing_params(0.50)
+    return {}

@@ -1,5 +1,5 @@
-"""Architecture registrations of the port (the ResNet, STDC classification, YOLO-NAS,
-PP-YOLOE, YOLOX, YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
+"""Architecture registrations of the port (the ResNet, STDC classification, MobileNet,
+YOLO-NAS, PP-YOLOE, YOLOX, SSD, YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
 ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from super_gradients_tpu_torch.inference.processing import (
     default_segmentation_processing,
     default_yolo_nas_coco_processing,
 )
+from super_gradients_tpu_torch.models.classification.mobilenet import MobileNetV1, MobileNetV2, MobileNetV3
 from super_gradients_tpu_torch.models.classification.resnet import CifarResNet, ResNet
 from super_gradients_tpu_torch.models.class_names import (
     CITYSCAPES_CLASSES_LIST,
@@ -33,6 +34,7 @@ from super_gradients_tpu_torch.models.detection.yolo_nas import (
     yolo_nas_m_config,
     yolo_nas_s_config,
 )
+from super_gradients_tpu_torch.models.detection.ssd import SSDConfig, SSDLiteMobileNetV2, SSDMobileNetV1, v1_config
 from super_gradients_tpu_torch.models.detection.yolox import YoloX, YoloXConfig, yolox_config
 from super_gradients_tpu_torch.models.model_factory import ModelSpec
 from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
@@ -98,6 +100,87 @@ def resnet18_cifar(num_classes=None, arch_params=None, **kw):
                      input_hw=(32, 32), model_cls=ClassificationModel)
 
 
+@register_model("custom_resnet")
+@register_model("custom_resnet50")
+def custom_resnet(num_classes=None, arch_params=None, **kw):
+    """A ResNet of ``arch_params`` ``structure`` (ResNet-50's by default) and ``block``
+    (``bottleneck``)."""
+    ap = arch_params or {}
+    return _resnet_spec(tuple(ap.get("structure", (3, 4, 6, 3))), ap.get("block", "bottleneck"), num_classes, ap, **kw)
+
+
+@register_model("resnet50_3343")
+def resnet50_3343(**kw):
+    return _resnet_spec([3, 3, 4, 3], "bottleneck", **kw)
+
+
+@register_model("custom_resnet_cifar")
+@register_model("custom_resnet50_cifar")
+def custom_resnet_cifar(num_classes=None, arch_params=None, **kw):
+    """A CIFAR ResNet of ``arch_params`` ``structure`` and ``block`` (ResNet-18's by default)."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 10)
+    net = CifarResNet(num_blocks=tuple(ap.get("structure", (2, 2, 2, 2))), num_classes=nc, block=ap.get("block", "basic"))
+    return ModelSpec(net=net, num_classes=nc, input_hw=(32, 32), model_cls=ClassificationModel)
+
+
+def _cls_spec(net, nc: int, input_hw=(224, 224)) -> ModelSpec:
+    """A classifier at ``input_hw`` with the ImageNet processing cropped to it."""
+    return ModelSpec(net=net, num_classes=nc, input_hw=input_hw,
+                     processing=default_imagenet_processing(crop=input_hw[0]), model_cls=ClassificationModel)
+
+
+@register_model("mobilenet_v2")
+def mobilenet_v2(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(MobileNetV2(num_classes=nc, width_mult=(arch_params or {}).get("width_mult", 1.0)), nc)
+
+
+@register_model("mobile_net_v2_135")
+def mobile_net_v2_135(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(MobileNetV2(num_classes=nc, width_mult=1.35), nc)
+
+
+@register_model("custom_mobilenet_v2")
+def custom_mobilenet_v2(num_classes=None, arch_params=None, **kw):
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    return _cls_spec(MobileNetV2(num_classes=nc, width_mult=ap.get("width_mult", 1.0)), nc)
+
+
+def _mobilenet_v3(mode: str, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    """MobileNetV3; ``arch_params`` gives ``num_classes`` (1000), ``mode`` and ``width_mult`` (1.0)."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes") or 1000
+    return _cls_spec(MobileNetV3(num_classes=nc, mode=ap.get("mode") or mode, width_mult=float(ap.get("width_mult") or 1.0)), nc)
+
+
+@register_model("mobilenet_v3_large")
+def mobilenet_v3_large(**kw):
+    return _mobilenet_v3("large", **kw)
+
+
+@register_model("mobilenet_v3_small")
+def mobilenet_v3_small(**kw):
+    return _mobilenet_v3("small", **kw)
+
+
+@register_model("mobilenet_v3_custom")
+def mobilenet_v3_custom(num_classes=None, arch_params=None, **kw):
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    return _cls_spec(MobileNetV3(num_classes=nc, width_mult=ap.get("width_mult", 1.0), mode=ap.get("mode", "large")), nc)
+
+
+@register_model("mobilenet_v1")
+def mobilenet_v1(num_classes=None, arch_params=None, **kw):
+    """MobileNetV1 at 64x64 (10 classes by default): the original's 2x2 average-pool head is
+    sized for it, as the JAX module's ``Dense`` is."""
+    nc = num_classes or (arch_params or {}).get("num_classes", 10)
+    return _cls_spec(MobileNetV1(num_classes=nc, input_hw=(64, 64)), nc, input_hw=(64, 64))
+
+
 def _stdc_cls_spec(backbone_cfg, num_classes=None, arch_params=None, **kw) -> ModelSpec:
     """STDC classification at 224 with the ImageNet processing; ``arch_params`` gives
     ``num_classes`` (1000 by default) and ``dropout`` (0.2)."""
@@ -114,6 +197,7 @@ def stdc1_classification(**kw):
 
 
 @register_model("stdc2_classification")
+@register_model("stdc_custom_cls")
 def stdc2_classification(**kw):
     return _stdc_cls_spec(STDC2_CFG, **kw)
 
@@ -249,6 +333,46 @@ def yolox_x(num_classes=None, arch_params=None, **kw):
     return _detection_spec(YoloX(cfg), nc, cfg, 640)
 
 
+def _ssd_anchor_overrides(arch_params) -> dict:
+    """``SSDConfig`` fields from the original ``heads.SSDHead`` subtree of an arch_params file
+    (its ``anchors`` DefaultBoxes spec and ``num_classes``)."""
+    head = ((arch_params or {}).get("heads", {}) or {}).get("SSDHead", {})
+    a = head.get("anchors", {})
+    out = {}
+    if a.get("fig_size"):
+        out["fig_size"] = int(a["fig_size"])
+    if a.get("feat_size"):
+        out["feat_sizes"] = tuple(int(x) for x in a["feat_size"])
+    if a.get("scales"):
+        out["scales"] = tuple(int(x) for x in a["scales"])
+    if a.get("aspect_ratios"):
+        out["aspect_ratios"] = tuple(tuple(int(x) for x in ar) for ar in a["aspect_ratios"])
+    if a.get("scale_xy"):
+        out["scale_xy"] = float(a["scale_xy"])
+    if a.get("scale_wh"):
+        out["scale_wh"] = float(a["scale_wh"])
+    if head.get("num_classes"):
+        out["num_classes"] = int(head["num_classes"])
+    return out
+
+
+def _ssd_spec(net_cls, base_cfg: SSDConfig, num_classes=None, arch_params=None, image_size: int = 320) -> ModelSpec:
+    over = _ssd_anchor_overrides(arch_params)
+    over["num_classes"] = num_classes or (arch_params or {}).get("num_classes") or over.get("num_classes", 80)
+    cfg = dataclasses.replace(base_cfg, **over)
+    return _detection_spec(net_cls(cfg), cfg.num_classes, cfg, image_size)
+
+
+@register_model("ssd_lite_mobilenet_v2")
+def ssd_lite_mobilenet_v2(image_size: int = 320, **kw):
+    return _ssd_spec(SSDLiteMobileNetV2, SSDConfig(fig_size=image_size), image_size=image_size, **kw)
+
+
+@register_model("ssd_mobilenet_v1")
+def ssd_mobilenet_v1(image_size: int = 320, **kw):
+    return _ssd_spec(SSDMobileNetV1, v1_config(fig_size=image_size), image_size=image_size, **kw)
+
+
 def _pose_spec(config_fn, num_classes=None, arch_params=None, image_size: int = 640) -> ModelSpec:
     """A YOLO-NAS-POSE spec: ``num_classes`` is the joint count (17 by default); an
     arch_params module-spec tree (``load_arch_params("yolo_nas_pose_s_arch_params")``)
@@ -332,6 +456,13 @@ def _ppliteseg(base, num_classes=None, arch_params=None, input_hw=(512, 1024), *
     nc = num_classes or arch_params.get("num_classes", 19)
     cfg = dataclasses.replace(base, num_classes=nc, use_aux_heads=arch_params.get("use_aux_heads", False))
     return _seg_spec(PPLiteSeg(cfg), nc, input_hw, cfg)
+
+
+@register_model("stdc_custom")
+def stdc_custom(num_classes=None, arch_params=None, input_hw=(512, 1024), **kw):
+    """STDC segmentation on the ``arch_params`` ``backbone`` (``stdc1`` or ``stdc2``)."""
+    backbone = STDC2_CFG if (arch_params or {}).get("backbone", "stdc1") == "stdc2" else STDC1_CFG
+    return _stdc_seg(backbone, num_classes, arch_params, input_hw)
 
 
 @register_model("pp_lite_t_seg")

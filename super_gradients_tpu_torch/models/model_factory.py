@@ -99,15 +99,16 @@ def get(
     ``load_backbone``, only the tensors whose name and shape match with
     ``strict_load=False`` (the default when ``load_backbone``). A checkpoint of another
     class count (``checkpoint_num_classes``) is loaded at that count, then the head is
-    replaced (:func:`replace_head`). ``pretrained_weights`` raises: no weights are in
-    the repository.
+    replaced (:func:`replace_head`). ``pretrained_weights`` (``"coco"``, ``"imagenet"``, ...)
+    attaches the processing parameters the published checkpoint was evaluated with, then,
+    unless ``checkpoint_path`` is given, loads ``$SG_PRETRAINED_DIR/<basename of its URL>``
+    (``models/pretrained_models.py``); an absent file raises ``FileNotFoundError`` naming
+    the URL. Nothing is downloaded.
     """
-    if pretrained_weights is not None:
-        raise NotImplementedError("pretrained_weights: no pretrained weights are in the repository; "
-                                  "pass checkpoint_path= to a .pth file (ROADMAP.md queue 1, 'Predict-path leftovers')")
     if checkpoint_num_classes is not None and num_classes is not None and checkpoint_num_classes != num_classes:
         base = get(model_name, num_classes=checkpoint_num_classes, arch_params=arch_params, seed=seed, device=device,
-                   checkpoint_path=checkpoint_path, load_backbone=load_backbone, strict_load=strict_load, **kwargs)
+                   checkpoint_path=checkpoint_path, pretrained_weights=pretrained_weights, load_backbone=load_backbone,
+                   strict_load=strict_load, **kwargs)
         return replace_head(base, num_classes, seed=seed, arch_params=arch_params, **kwargs)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -121,6 +122,16 @@ def get(
         name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
         processing=spec.processing, class_names=spec.class_names, device=device, **spec.model_kwargs,
     )
+    if pretrained_weights is not None:
+        from super_gradients_tpu_torch.inference.processing import get_pretrained_processing_params
+
+        proc_params = get_pretrained_processing_params(model_name, pretrained_weights)
+        if proc_params:
+            model.set_dataset_processing_params(**proc_params)
+    if pretrained_weights is not None and checkpoint_path is None:
+        from super_gradients_tpu_torch.models.pretrained_models import resolve_pretrained_path
+
+        checkpoint_path = resolve_pretrained_path(model_name, pretrained_weights)
     if checkpoint_path is not None:
         from super_gradients_tpu_torch.training.checkpoints import load_checkpoint_into_model
 
@@ -137,4 +148,5 @@ def replace_head(model: SgModel, new_num_classes: int, seed: int = 0, **kwargs) 
 
     new_model = get(model.name, num_classes=new_num_classes, seed=seed, device=model.device, **kwargs)
     new_model.load_state_dict(transfer_weights(model.net.state_dict(), new_model.net.state_dict()))
+    new_model._processing = model._processing
     return new_model

@@ -72,6 +72,48 @@ class SgModel:
     def class_names(self) -> Optional[List[str]]:
         return self._class_names
 
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.net.parameters())
+
+    def replace_head(self, new_num_classes: int, seed: int = 0) -> "SgModel":
+        """A NEW model of ``new_num_classes`` whose backbone and neck are this model's, bit
+        for bit; only the class-dependent head tensors are drawn anew from ``seed``."""
+        from super_gradients_tpu_torch.models.model_factory import replace_head
+
+        return replace_head(self, new_num_classes, seed=seed)
+
+    def set_dataset_processing_params(
+        self,
+        class_names: Optional[List[str]] = None,
+        image_processor: Optional[Processing] = None,
+        conf: Optional[float] = None,
+        iou: Optional[float] = None,
+        edge_links=None,
+        edge_colors=None,
+        keypoint_colors=None,
+        **kwargs,
+    ) -> None:
+        """Attach a dataset's inference parameters: class names, the preprocessing, the NMS
+        conf and IoU defaults, the pose skeleton and its colours (``None`` keeps a value)."""
+        if class_names is not None:
+            self._class_names = list(class_names)
+        if image_processor is not None:
+            self._processing = image_processor
+        if conf is not None:
+            self._default_nms_conf = float(conf)
+        if iou is not None:
+            self._default_nms_iou = float(iou)
+        if edge_links is not None:
+            self._edge_links = edge_links
+        if edge_colors is not None:
+            self._edge_colors = edge_colors
+        if keypoint_colors is not None:
+            self._keypoint_colors = keypoint_colors
+        self._deploy_nets.clear()
+
+    def get_processing_params(self) -> Optional[Processing]:
+        return self._processing
+
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
 

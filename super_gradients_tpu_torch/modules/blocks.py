@@ -20,11 +20,15 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-# the activations the YOLO-NAS family's configs can name (the JAX table has more)
+# the activations the ported families' configs can name (the JAX table has more); relu6,
+# hardswish and hardsigmoid are JAX's min(relu(x), 6), x * relu6(x + 3) / 6 and relu6(x + 3) / 6
 ACTIVATIONS: Dict[Optional[str], Callable[[], nn.Module]] = {
     "relu": nn.ReLU,
+    "relu6": nn.ReLU6,
     "silu": nn.SiLU,
     "swish": nn.SiLU,
+    "hardswish": nn.Hardswish,
+    "hardsigmoid": nn.Hardsigmoid,
     "identity": nn.Identity,
     None: nn.Identity,
 }
@@ -83,6 +87,20 @@ class ConvBNReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.seq(x)
+
+
+class SEBlock(nn.Module):
+    """Squeeze-and-excitation: the global mean, ``fc.0`` (with bias), the activation, ``fc.2``
+    (with bias), the gate, times the input. The JAX block's two 1x1 convs on the pooled
+    map are the original's ``Linear`` layers here, so that an original checkpoint loads."""
+
+    def __init__(self, channels: int, squeeze_channels: int, act="relu", gate="hardsigmoid"):
+        super().__init__()
+        self.fc = nn.Sequential(nn.Linear(channels, squeeze_channels), get_activation(act),
+                                nn.Linear(squeeze_channels, channels), get_activation(gate))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
 
 
 def _fuse_bn(kernel: torch.Tensor, bias: Optional[torch.Tensor], bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:

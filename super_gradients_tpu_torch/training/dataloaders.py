@@ -397,6 +397,18 @@ def coco2017_val_yolox(data_dir: str, batch_size: int = 32, input_dim=(640, 640)
     return coco2017_val_yolo_nas(data_dir, batch_size, input_dim, max_boxes, **kw)
 
 
+@register_dataloader("coco2017_train_ssd_lite_mobilenet_v2")
+def coco2017_train_ssd(data_dir: str, batch_size: int = 32, input_dim=(320, 320), max_boxes: int = 120,
+                       **kw) -> DataLoader:
+    return coco2017_train_yolo_nas(data_dir, batch_size, input_dim, max_boxes, **kw)
+
+
+@register_dataloader("coco2017_val_ssd_lite_mobilenet_v2")
+def coco2017_val_ssd(data_dir: str, batch_size: int = 32, input_dim=(320, 320), max_boxes: int = 120,
+                     **kw) -> DataLoader:
+    return coco2017_val_yolo_nas(data_dir, batch_size, input_dim, max_boxes, **kw)
+
+
 @register_dataloader("roboflow_train")
 def roboflow_train(data_dir: str, dataset_name: str, batch_size: int = 16, image_size=(640, 640), **kw) -> DataLoader:
     ds = RoboflowDetectionDataset(data_dir=data_dir, dataset_name=dataset_name, split="train",
@@ -471,14 +483,18 @@ def _split_dir(data_dir: str, split: str) -> str:
 
 
 @register_dataloader("imagenet_resnet50_train")
+@register_dataloader("imagenet_mobilenetv2_train")
+@register_dataloader("imagenet_mobilenetv3_train")
 def imagenet_resnet50_train(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
-    """The ResNet-50 recipe's train loader: the ImageFolder of ``data_dir/train`` (or of
-    ``data_dir``) at 224x224."""
+    """The ResNet-50 and MobileNet recipes' train loader: the ImageFolder of ``data_dir/train``
+    (or of ``data_dir``) at 224x224."""
     return DataLoader(ImageFolderDataset(_split_dir(data_dir, "train"), (224, 224)), batch_size=batch_size,
                       shuffle=True, **_loader_kwargs(kw))
 
 
 @register_dataloader("imagenet_resnet50_val")
+@register_dataloader("imagenet_mobilenetv2_val")
+@register_dataloader("imagenet_mobilenetv3_val")
 def imagenet_resnet50_val(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
     return DataLoader(ImageFolderDataset(_split_dir(data_dir, "val"), (224, 224)), batch_size=batch_size,
                       shuffle=False, drop_last=False, **_loader_kwargs(kw))

@@ -1,6 +1,6 @@
 """Loss registry surface of the port (counterpart of
 ``super_gradients_tpu/training/losses/__init__.py``; the classification and segmentation
-losses, PPYoloELoss, YoloXDetectionLoss and YoloNASPoseLoss so far)."""
+losses, PPYoloELoss, YoloXDetectionLoss, YoloNASPoseLoss and SSDLoss so far)."""
 
 from super_gradients_tpu_torch.common.registry import LOSSES
 from super_gradients_tpu_torch.training.losses.classification_losses import (  # noqa: F401
@@ -11,6 +11,7 @@ from super_gradients_tpu_torch.training.losses.classification_losses import (  #
     RSquaredLoss,
 )
 from super_gradients_tpu_torch.training.losses.ppyolo_loss import PPYoloELoss  # noqa: F401
+from super_gradients_tpu_torch.training.losses.ssd_loss import SSDLoss  # noqa: F401
 from super_gradients_tpu_torch.training.losses.segmentation_losses import (  # noqa: F401
     BCEDiceLoss,
     BinaryDiceLoss,

@@ -340,6 +340,14 @@ class Trainer:
         tp = self._tracked_params(training_params)
         self.training_params = tp
         _refuse_unported(tp)
+        # the dataset's class names and preprocessing go to the model, so that a trained model
+        # predicts with them; as in the JAX trainer, a failure is logged at debug level only
+        dataset = getattr(train_loader, "dataset", None)
+        if hasattr(model, "set_dataset_processing_params") and hasattr(dataset, "get_dataset_preprocessing_params"):
+            try:
+                model.set_dataset_processing_params(**dataset.get_dataset_preprocessing_params())
+            except Exception as e:
+                logger.debug(f"preprocessing-params handoff skipped: {e}")
         if tp.get("cross_replica_bn"):
             logger.info("cross_replica_bn=True: one device, BN already reduces over the whole batch (no-op)")
         tp.get("seed")  # the YOLO-NAS train step draws no random numbers

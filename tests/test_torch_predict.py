@@ -205,17 +205,21 @@ def test_get_on_cuda_raises_without_gpu():
         models.get("yolo_nas_s", num_classes=4, image_size=64)
 
 
-def test_unported_inputs_and_outputs_raise(pair, tmp_path):
-    """Inputs that are no image raise as in the JAX package; pretrained weights raise
-    naming their ROADMAP item; a checkpoint loads."""
+def test_unported_inputs_and_outputs_raise(pair, tmp_path, monkeypatch):
+    """Inputs that are no image raise as in the JAX package; pretrained weights absent from
+    the mirror raise the JAX ``FileNotFoundError`` naming the URL; a checkpoint loads."""
     jm, pm = pair
     for bad, error in ((12345, TypeError), (str(tmp_path / "missing.jpg"), FileNotFoundError)):
         with pytest.raises(error):
             jm.predict(bad)
         with pytest.raises(error):
             pm.predict(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setenv("SG_PRETRAINED_DIR", str(tmp_path / "empty_mirror"))
+    url = "https://sg-hub-nv.s3.amazonaws.com/models/yolo_nas_s_coco.pth"
+    with pytest.raises(FileNotFoundError, match=url):
         models.get("yolo_nas_s", device="cpu", pretrained_weights="coco")
+    with pytest.raises(FileNotFoundError, match=url):
+        jax_models.get("yolo_nas_s", pretrained_weights="coco")
     # checkpoint_path loads a .pth of the original super-gradients layout, ema_net first
     live = {k: v + 1 if v.is_floating_point() else v for k, v in pm.net.state_dict().items()}
     path = str(tmp_path / "ckpt.pth")
@@ -232,8 +236,9 @@ def test_unported_inputs_and_outputs_raise(pair, tmp_path):
 def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
-    surface (the pose, classification, segmentation and PP-YOLOE / YOLOX modules included)
-    imports, detection (YOLO-NAS, YOLOX, tiled), pose, classification and segmentation
+    surface (the pose, classification, segmentation, PP-YOLOE / YOLOX and MobileNet / SSD
+    modules included) imports, detection (YOLO-NAS, YOLOX, SSD-lite, tiled), pose,
+    classification (ResNet, MobileNetV3) and segmentation
     predict take the no-cv2 resizes, reading an image
     or a YAML recipe raises
     an ImportError that names
@@ -282,6 +287,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.training import collate_functions
         from super_gradients_tpu_torch.training.losses import yolox_loss
         from super_gradients_tpu_torch.inference import sliding_window
+        from super_gradients_tpu_torch.models import pretrained_models
+        from super_gradients_tpu_torch.models.classification import mobilenet
+        from super_gradients_tpu_torch.models.detection import ssd
+        from super_gradients_tpu_torch.training.losses import ssd_loss
         assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():
@@ -302,6 +311,15 @@ def test_port_runs_with_jax_blocked(tmp_path):
         assert len(boxes[0]) > 0 and np.isfinite(boxes[0].bboxes_xyxy).all()
         tiled = sliding_window.SlidingWindowInferenceDetectionWrapper(model, tile_size=64, tile_step=48)
         assert np.isfinite(tiled.predict(rng.randint(0, 256, (70, 100, 3), dtype=np.uint8))[0].bboxes_xyxy).all()
+        grid = {{"fig_size": 64, "feat_size": [4, 2, 1, 1, 1, 1], "scales": [6, 16, 27, 37, 47, 57, 67],
+                "aspect_ratios": [[2, 3]] * 6}}
+        ssd_model = models.get("ssd_lite_mobilenet_v2", num_classes=4, image_size=64, device="cpu",
+                               arch_params={{"heads": {{"SSDHead": {{"anchors": grid}}}}}})
+        found = ssd_model.predict([rng.randint(0, 256, (50, 64, 3), dtype=np.uint8)], conf=0.05)
+        assert len(found[0]) > 0 and np.isfinite(found[0].bboxes_xyxy).all()
+        mobile = models.get("mobilenet_v3_small", num_classes=10, arch_params={{"width_mult": 0.5}}, device="cpu")
+        top = mobile.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], batch_size=2)
+        assert top[0].labels.shape == (5,) and np.isfinite(top[0].confidence).all()
         segmenter = models.get("pp_lite_t_seg", num_classes=4, input_hw=(64, 128), device="cpu")
         maps = segmenter.predict([rng.randint(0, 256, (40, 70, 3), dtype=np.uint8)], batch_size=2)
         assert maps[0].segmentation_map.shape == (40, 70) and maps[0].segmentation_map.max() < 4

@@ -184,10 +184,13 @@ def test_evaluate_checkpoint_matches_jax_evaluate(run, jax_model):
             assert abs(got[k] - ref[k]) <= 1e-6, (k, got[k], ref[k])
 
 
-def test_recipe_callbacks_and_unported_branches_raise():
+def test_recipe_callbacks_and_unported_branches_raise(tmp_path, monkeypatch):
     """Named pre-launch callbacks resolve as in the JAX trainer: the batch-size probe,
     called with the recipe alone, hands it back unchanged as the JAX one does; QAT's raises
-    naming its ROADMAP item, an unknown name raises KeyError as the JAX registry does."""
+    naming its ROADMAP item, an unknown name raises KeyError as the JAX registry does; a
+    teacher raises naming its ROADMAP item; ``pretrained_weights`` with an empty mirror raises
+    ``FileNotFoundError`` naming the URL, as the JAX package does (``tests/test_torch_predict.py``
+    holds the two to each other)."""
     import super_gradients_tpu.training.pre_launch_callbacks  # noqa: F401  (registers the JAX callbacks)
     from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
 
@@ -204,7 +207,9 @@ def test_recipe_callbacks_and_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer._model_from_cfg({"architecture": "yolo_nas_s", "device": "cpu",
                                  "checkpoint_params": {"teacher_checkpoint_path": "teacher.pth"}})
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    monkeypatch.setenv("SG_PRETRAINED_DIR", str(tmp_path))
+    url = "https://sg-hub-nv.s3.amazonaws.com/models/yolo_nas_s_coco.pth"
+    with pytest.raises(FileNotFoundError, match=url):
         Trainer._model_from_cfg({"architecture": "yolo_nas_s", "device": "cpu",
                                  "checkpoint_params": {"pretrained_weights": "coco"}})
 

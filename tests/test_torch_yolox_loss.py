@@ -138,6 +138,49 @@ def test_tie_fixture_reaches_the_ties():
     np.testing.assert_array_equal(pgt.numpy(), np.asarray(jgt))
 
 
+def _jax_costs(reg, obj, cls, t, boxes):
+    """(class cost, total cost) of the JAX SimOTA, ``[A]`` for the first gt of image 0, by
+    the JAX module's own expressions (the sum over the ``[B, n, A, C]`` BCE)."""
+    from super_gradients_tpu.ops.bbox import box_iou as jax_box_iou
+
+    jo = jax_outputs(jnp.asarray(reg), jnp.asarray(obj), jnp.asarray(cls), boxes)
+    p = jnp.sqrt(jnp.clip(jo.pred_scores, 1e-8, 1.0))
+    onehot = jax.nn.one_hot(jnp.asarray(np.maximum(t[..., 0], 0).astype(np.int32)), C)
+    bce = -(onehot[:, :, None, :] * jnp.log(p[:, None]) + (1 - onehot[:, :, None, :]) * jnp.log(1 - p[:, None] + 1e-8))
+    ious = jax_box_iou(jnp.asarray(t[..., 1:5]), jo.pred_bboxes) * (jnp.asarray(t[..., 0]) >= 0)[..., None]
+    cls_cost = jnp.sum(bce, -1)
+    return np.asarray(cls_cost)[0, 0], np.asarray(cls_cost + 3.0 * -jnp.log(ious + 1e-8))[0, 0]
+
+
+def test_near_tie_ranks_and_assigns_as_jax():
+    """SimOTA's class cost, summed per anchor in the port and over the ``[B, n, A, C]`` BCE in
+    JAX, can round apart by an ulp. The fixture (the tie fixture with one gt) moves the class-0
+    logit of anchor 26, one of the eight candidates with equal boxes and the 4th-8th of the
+    ranking whose first three dynamic k takes, ulp by ulp: some steps put its JAX class cost
+    within one ulp of anchor 20's (the 3rd, asserted), and at every step the port ranks the two
+    as JAX's totals do and assigns as JAX does. Accepted: the sums may still round apart on
+    other inputs (ROADMAP.md section 3, settled)."""
+    reg, obj, cls, t, boxes = tie_case()
+    t[0, 1] = -1
+    near = 0
+    for k in range(16):
+        moved = cls.copy()
+        v = np.float32(2.0)
+        for _ in range(k):
+            v = np.nextafter(v, np.float32(3.0), dtype=np.float32)
+        moved[0, 26, 0] = v
+        jcls, jtotal = _jax_costs(reg, obj, moved, t, boxes)
+        gap = abs(float(jcls[26]) - float(jcls[20]))
+        near += 0 < gap <= float(np.spacing(np.float32(jcls[20])))
+        (jfg, jgt, _), (pfg, pgt, _), loss, args = _assign_both((reg, obj, moved, t, boxes))
+        pcost = loss.costs(*args)[2][0, 0].numpy()
+        if jtotal[26] != jtotal[20]:
+            assert np.sign(pcost[26] - pcost[20]) == np.sign(jtotal[26] - jtotal[20]), k
+        np.testing.assert_array_equal(pfg.numpy(), np.asarray(jfg))
+        np.testing.assert_array_equal(pgt.numpy(), np.asarray(jgt))
+    assert near > 0
+
+
 def test_saturated_case_underflows():
     reg, obj, cls, _, _ = random_case(2, saturate=True)
     scores = port_outputs(torch.from_numpy(reg), torch.from_numpy(obj), torch.from_numpy(cls)).pred_scores

@@ -163,6 +163,31 @@ result) without CUDA or without the port's sources next to it. Phases:
    temporary ``$SG_PRETRAINED_DIR`` holding a port-written ``.pth``: predictions equal to the
    same file through ``checkpoint_path=``, the COCO class names and processing.
 
+18. data parallelism (``torch.distributed``; the launcher starts the ranks as
+   ``chip_smoke.py --ddp-rank ...``, each killed with its session past ``DDP_TIMEOUT``):
+   (a) ``python3 -m torch.distributed.run --standalone --nproc_per_node=1`` of the module
+   ``super_gradients_tpu_torch.train_from_recipe`` (run as ``-m`` runs it) with
+   ``roboflow_yolo_nas_m num_devices=1`` on phase 11's dataset, 1 epoch of b16, bf16: the rank
+   joins a one-rank NCCL group, its losses are finite, K1 launches once a validation batch on
+   it, and ``evaluate_checkpoint`` equals a direct ``Trainer.evaluate`` (phase 11's gate);
+   on that rank, ``GlobalBatchNorm2d`` forced onto its global path holds to ``nn.BatchNorm2d``
+   on a bf16 channels_last activation within ``DDP_BN_BF16_TOL`` (both timed, with the
+   profiler's host time by op), and the bf16 b16 step is timed by part as the trainer builds
+   it there (DDP, cuDNN's BN), without DDP's wrapper and with the global BN forced on,
+   interleaved on one model, beside phase 9's step;
+   (b) two ranks sharing the card over gloo (``setup_device(backend="gloo")``) take one fp32
+   SGD step of YOLO-NAS-M at 640 (TF32 off) on a global batch of 4 (phase 8's dataset
+   extended), 2 a rank: the loss, the gradients and the updated weights no further from an
+   fp64 CPU step than twice the one-process GPU step (the fp64 assignment shared, as in
+   phase 8), and ``GlobalBatchNorm2d`` over the two ranks within ``DDP_BN_TOL`` of
+   ``nn.BatchNorm2d`` on the whole batch; (c) two ranks sharing the card over gloo run
+   ``train_from_recipe`` (1 epoch of global b16, bf16) validated with ``DetectionMetrics``
+   gathered over the ranks: equal on both ranks and within 1e-6 of one process's validation
+   of ``ckpt_best.pth`` under the same policy, K1 twice on each rank, nothing written by rank
+   1; (d) with two or more GPUs, the bf16 step at global b32 over NCCL timed by part on each
+   rank (with one GPU it says so and runs nothing). The ranks' K1 launches join the kernels
+   line.
+
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
 ``ckpt_best``, ``ckpt_epoch_1``, ``average_model`` and ``recipe.json`` into a
@@ -791,11 +816,47 @@ def phase_train_gpu_vs_cpu(torch, np, models):
         torch.backends.cudnn.allow_tf32 = True
 
 
+def step_runner(step, images, targets):
+    """One train step by its four parts; ``run(events)`` records a CUDA event before,
+    between and after them."""
+
+    def run(events=None):
+        marks = [lambda: None] * 5 if events is None else [e.record for e in events]
+        marks[0]()
+        out = step.forward(images)
+        marks[1]()
+        loss, _ = step.loss(out, targets)
+        marks[2]()
+        step.backward(loss)
+        marks[3]()
+        step.update()
+        marks[4]()
+        return loss
+
+    return run
+
+
+def time_by_part(torch, run, warmup=3, iters=10):
+    """Mean ms of ``run``'s parts over ``iters`` steps after ``warmup`` (CUDA events):
+    {forward, loss, backward, update, step}."""
+    for _ in range(warmup):
+        run()
+    events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
+    for ev in events:
+        run(ev)
+    torch.cuda.synchronize()
+    parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
+    step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+    return dict(zip(("forward", "loss", "backward", "update"), parts), step=step_ms)
+
+
 def phase_train_timing(torch, np, models):
-    """bf16 train step of YOLO-NAS-M at 640, b16 and b32, on a batch already on the card."""
+    """bf16 train step of YOLO-NAS-M at 640, b16 and b32, on a batch already on the card.
+    Returns {batch: ms by part}."""
     from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
 
     model = models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda")
+    timings = {}
     for b in (16, 32):
         step = Trainer("chip_smoke_timing").prepare(model, dict(COCO_YOLO_NAS, lr_warmup_steps=1000), steps_per_epoch=100)
         dataset = RandomDetectionDataset(num_samples=b, image_size=(640, 640), num_classes=80, max_boxes=120)
@@ -804,29 +865,9 @@ def phase_train_timing(torch, np, models):
         targets = targets.cuda()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-
-        def run(events=None):
-            marks = [lambda: None] * 5 if events is None else [e.record for e in events]
-            marks[0]()
-            out = step.forward(images)
-            marks[1]()
-            loss, _ = step.loss(out, targets)
-            marks[2]()
-            step.backward(loss)
-            marks[3]()
-            step.update()
-            marks[4]()
-            return loss
-
-        for _ in range(3):
-            run()
-        iters = 10
-        events = [[torch.cuda.Event(enable_timing=True) for _ in range(5)] for _ in range(iters)]
-        for ev in events:
-            run(ev)
-        torch.cuda.synchronize()
-        parts = [sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / iters for i in range(4)]
-        step_ms = sum(ev[0].elapsed_time(ev[4]) for ev in events) / iters
+        run = step_runner(step, images, targets)
+        ms = timings[b] = time_by_part(torch, run)
+        step_ms = ms["step"]
         # device activity only: tracing every CPU op would slow the host, which bounds this step
         events, wall_ms = profiled(torch, run, 5, with_cpu=False)
         kernels = sorted(events, key=lambda e: -_self_device_us(e))
@@ -837,14 +878,15 @@ def phase_train_timing(torch, np, models):
         check(bool(torch.isfinite(loss)), f"b{b} train loss not finite")
         peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"[9] yolo_nas_m bf16 train step b{b}: {step_ms:.2f} ms/step, {b * 1e3 / step_ms:.1f} img/s (CUDA events); "
-              f"forward {parts[0]:.2f}, loss {parts[1]:.2f}, backward {parts[2]:.2f}, optimizer+EMA {parts[3]:.2f} ms; "
-              f"profiled (device activity only): wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms, "
-              f"idle share {1 - busy_ms / wall_ms:.3f}; "
+              f"forward {ms['forward']:.2f}, loss {ms['loss']:.2f}, backward {ms['backward']:.2f}, optimizer+EMA "
+              f"{ms['update']:.2f} ms; profiled (device activity only): wall {wall_ms:.2f} ms/step, device busy "
+              f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
               f"peak memory {peak:.2f} GiB")
         print(f"[9] b{b} device time by kernel, per step: {len(kernels)} kinds, "
               f"{sum(e.count for e in kernels) // 5} launches; top: {top}")
-        del step, images, targets, loss, events, kernels
+        del step, images, targets, loss, events, kernels, run
         torch.cuda.empty_cache()
+    return timings
 
 
 def own_detection_targets(np, nms, max_boxes=300):
@@ -3347,6 +3389,597 @@ def phase_ssd_pretrained(torch, np, nms_exact, root):
     return launches
 
 
+# ------------------------------------------------------------------ phase 18: data parallelism
+
+DDP_TIMEOUT = 900  # seconds a phase-18 launch may take before its whole session is killed
+DDP_STEP_SAMPLES = 4  # 18b's global batch: phase 8's dataset (samples 0-1 its batch) extended to 4 images
+DDP_BN_SHAPE = (4, 96, 160, 160)  # 18b's standalone BN check: a stage-1-sized activation of YOLO-NAS-M at 640
+DDP_BN_TOL = 1e-5  # |global BN - one-process BN| over the largest magnitude, fp32 (TF32 off)
+DDP_BN_BF16_SHAPE = (16, 96, 160, 160)  # 18a's bf16 BN check: a stage-1 activation of YOLO-NAS-M at 640, b16
+DDP_BN_BF16_TOL = 1e-2  # the same, bf16 channels_last in and out (a bf16 ulp is 3.9e-3 of a value)
+
+
+def launch_ranks(torch_run_args, rank_args, timeout=DDP_TIMEOUT):
+    """``python3 -m torch.distributed.run <args> chip_smoke.py --ddp-rank <rank_args>`` in a
+    session of its own, killed whole past ``timeout``; returns (seconds, output)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", *torch_run_args, os.path.join(HERE, "chip_smoke.py"),
+           "--ddp-rank", *rank_args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print(out[-6000:])
+        check(False, f"{' '.join(cmd)}: no result after {timeout} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(out[-12000:])
+    check(proc.returncode == 0, f"{' '.join(cmd)}: exit code {proc.returncode}")
+    return seconds, out
+
+
+def rank_reports(work, world):
+    reports = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def ddp_recipe_cuts(data_root, ckpt_root, n):
+    return [f"dataset_params.train_dataset_params.data_dir={data_root}",
+            f"dataset_params.val_dataset_params.data_dir={data_root}", "dataset_name=synthetic", "num_classes=80",
+            "epochs=1", "batch_size=16", "val_batch_size=16", "num_workers=2", f"ckpt_root_dir={ckpt_root}",
+            "training_hyperparams.mixed_precision=True", "training_hyperparams.sg_logger_params.tensorboard=False",
+            f"num_devices={n}"]
+
+
+def phase_ddp(torch, np, root, one_process_ms=None):
+    """Phase 18: data parallelism (``one_process_ms``: phase 9's one-process step by part,
+    {batch: ms}, which 18a's step is printed beside). Returns K1's launches on the ranks of
+    18a and 18c."""
+    t_phase = time.perf_counter()
+    data_root = os.path.join(root, "rf100")
+    make_rf100_dataset(np, data_root)
+    launches = phase_ddp_entry(torch, np, data_root, os.path.join(root, "18a"), (one_process_ms or {}).get(16))
+    phase_ddp_step(torch, np, os.path.join(root, "18b"))
+    launches += phase_ddp_train(torch, np, data_root, os.path.join(root, "18c"))
+    phase_ddp_across_cards(torch, os.path.join(root, "18d"))
+    print(f"[18] phase 18 {time.perf_counter() - t_phase:.1f} s; K1 launches on its ranks: {launches}")
+    return launches
+
+
+def fmt_parts(ms):
+    return ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + " ms"
+
+
+def phase_ddp_entry(torch, np, data_root, work, one_process_ms=None):
+    """18a: the real entry point under torch.distributed.run, one rank over NCCL; then, on
+    that rank, the bf16 b16 step by part as the trainer builds it there (DDP, cuDNN BN),
+    and with the global BN forced on (its two all-reduces a BN, at world size 1), beside
+    ``one_process_ms``, phase 9's one-process step."""
+    from super_gradients_tpu_torch.common import config
+
+    os.makedirs(work)
+    ckpt_root = os.path.join(work, "ckpt")
+    cuts = ddp_recipe_cuts(data_root, ckpt_root, 1)
+    seconds, out = launch_ranks(["--standalone", "--nproc_per_node=1"],
+                                ["entry", work, "--config-name=roboflow_yolo_nas_m", *cuts])
+    (report,) = rank_reports(work, 1)
+    check("rank 0 of world size 1, backend nccl, device cuda:0" in out, "18a did not join a one-rank NCCL group")
+    history = report["history"]
+    check(len(history) == 1 and all(np.isfinite(history)), f"18a train losses {history}")
+    n_valid_batches = -(-32 // 16)
+    check(report["launches"] == n_valid_batches, f"K1 launched {report['launches']} times on the 18a rank, expected "
+                                                  f"one a validation batch ({n_valid_batches})")
+    check(report["collectives"] > 0, "18a ran no collective")
+    print(f"[18a] python3 -m torch.distributed.run --standalone --nproc_per_node=1 -m "
+          f"super_gradients_tpu_torch.train_from_recipe --config-name=roboflow_yolo_nas_m {' '.join(cuts)}: backend nccl, "
+          f"world size 1, {seconds:.1f} s (launcher included); losses {history}; validation {json.dumps(report['valid'])}; "
+          f"K1 launches on the rank {report['launches']}; all-reduces of the port's collectives in the run "
+          f"{report['collectives']}")
+    bn = report["bn"]
+    check(max(bn["err"].values()) <= DDP_BN_BF16_TOL, f"18a: the global BN, forced on, differs from nn.BatchNorm2d "
+                                                      f"in bf16: {bn['err']}")
+    print(f"[18a] GlobalBatchNorm2d forced on (one-rank NCCL all-reduces) against nn.BatchNorm2d on "
+          f"{list(DDP_BN_BF16_SHAPE)} bf16 channels_last, |difference| over the largest magnitude: {json.dumps(bn['err'])}, "
+          f"limit {DDP_BN_BF16_TOL}; forward + backward {bn['global_ms']:.3f} ms against {bn['plain_ms']:.3f} ms (CUDA "
+          f"events), device busy {bn['global_busy_ms']:.3f} against {bn['plain_busy_ms']:.3f} ms (profiler)")
+    for v in ("global", "plain"):
+        print(f"[18a] {v} BN, host time a forward + backward by op (self CPU, profiler): {bn[v + '_host']}")
+    base = report["ms"]["one_process"]["step"]
+    for what, ms in report["ms"].items():
+        check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"18a {what} timing {ms}")
+        ratio = f"; {ms['step'] / one_process_ms['step']:.3f}x phase 9's step" if one_process_ms else ""
+        print(f"[18a] {what} step, bf16 b16 on the NCCL rank of world size 1 (each variant timed twice, "
+              f"interleaved): {fmt_parts(ms)}; {ms['step'] / base:.3f}x the one_process variant{ratio}")
+    if one_process_ms:
+        print(f"[18a] phase 9's one-process bf16 b16 step: {fmt_parts(one_process_ms)}")
+    cfg = config.load_recipe("roboflow_yolo_nas_m", overrides=cuts)
+    check_evaluate_checkpoint(torch, cfg, cfg["experiment_name"], report["ckpt_dir"], ckpt_root, "18a")
+    return report["launches"]
+
+
+def ddp_step_batch(torch, np):
+    from super_gradients_tpu_torch.training import RandomDetectionDataset
+
+    dataset = RandomDetectionDataset(num_samples=DDP_STEP_SAMPLES, image_size=(640, 640), num_classes=80, max_boxes=120)
+    return (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in range(DDP_STEP_SAMPLES))))
+
+
+def ddp_one_step(torch, models, device, dtype, images, targets, assign=None):
+    """One SGD step of phase 8's regime (``_one_step``) on ``device`` in ``dtype``, the
+    assignment ``assign`` when given: (its own assignment, loss components, gradients,
+    updated weights), fp64 on the CPU. Inside a process group the step is the DDP step."""
+    import types
+
+    from super_gradients_tpu_torch.training import Trainer
+
+    net = models.get("yolo_nas_m", num_classes=80, seed=0, device="cpu").net.to(device, dtype)
+    model = types.SimpleNamespace(net=net, device=torch.device(device))
+    x, t = images.to(device, dtype), targets.to(device, dtype)
+    if device == "cuda":
+        x = x.contiguous(memory_format=torch.channels_last)
+    params = dict(COCO_YOLO_NAS, optimizer="SGD", optimizer_params={"momentum": 0.9, "weight_decay": 1e-5},
+                  ema=False, mixed_precision=False, lr_warmup_steps=0, initial_lr=1e-3)
+    step = Trainer("chip_smoke_ddp_step").prepare(model, params, steps_per_epoch=1)
+    out = step.forward(x)
+    own = step.criterion.assign(out, t)
+    if assign is not None:
+        step.criterion.assigner = _FixedAssigner(type(assign)(*(
+            a.to(device, a.dtype if not a.is_floating_point() else dtype) for a in assign)))
+    loss, comps = step.loss(out, t)
+    step.backward(loss)
+    grads = {k: p.grad.detach().double().cpu() for k, p in step.state.net.named_parameters() if p.grad is not None}
+    step.update()
+    weights = {k: p.detach().double().cpu() for k, p in step.state.net.named_parameters()}
+    return own, {k: float(v.detach()) for k, v in dict(comps, loss=loss).items()}, grads, weights
+
+
+def phase_ddp_step(torch, np, work):
+    """18b: one fp32 SGD step of YOLO-NAS-M at 640 on two ranks sharing the card over gloo
+    (a global batch of 4), held to the fp64 CPU step within twice the one-process GPU
+    step's distance (phase 8's rule, the fp64 assignment shared); and the global BN on the
+    card against one-process BN."""
+    from super_gradients_tpu_torch import models
+
+    os.makedirs(work)
+    images, targets = ddp_step_batch(torch, np)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        ref_assign, ref_comps, ref_grads, ref_weights = ddp_one_step(torch, models, "cpu", torch.float64, images,
+                                                                     targets)
+        fp64_seconds = time.perf_counter() - t0
+        _, gpu_comps, gpu_grads, gpu_weights = ddp_one_step(torch, models, "cuda", torch.float32, images, targets,
+                                                            ref_assign)
+        torch.save({"images": images, "targets": targets, "assign": tuple(ref_assign)}, os.path.join(work, "batch.pt"))
+        seconds, out = launch_ranks(["--standalone", "--nproc_per_node=2"], ["step", work])
+        reports = rank_reports(work, 2)
+        ddp = torch.load(os.path.join(work, "step.pt"), weights_only=True)
+        check(out.count("backend gloo, device cuda:0 (gloo on CUDA") == 2, "18b ranks did not print their gloo group")
+        init = {k: v.double() for k, v in models.get("yolo_nas_m", num_classes=80, seed=0, device="cpu").net.named_parameters()}
+        print(f"[18b] two ranks on one card over gloo (setup_device(backend='gloo'), printed by each rank), CUDA "
+              f"tensors, 2 of the 4 images a rank, TF32 off; launch {seconds:.1f} s; fp64 CPU reference step "
+              f"{fp64_seconds:.1f} s")
+        for key in ("loss_cls", "loss_iou", "loss_dfl", "loss"):
+            two = float(np.mean([r["comps"][key] for r in reports]))  # the global loss: the mean of the ranks'
+            errs = {"two ranks": abs(two - ref_comps[key]), "one GPU": abs(gpu_comps[key] - ref_comps[key])}
+            # printed, not gated (the gate is on the gradients and the updated weights): a loss component's
+            # fp32 error is one draw of the train-mode forward's rounding noise
+            print(f"[18b] {key} {ref_comps[key]:.6f} (fp64 CPU): two-rank err {errs['two ranks']:.3g}, one-GPU err "
+                  f"{errs['one GPU']:.3g}")
+        for what, ref, gpu, two, base in (("gradients", ref_grads, gpu_grads, ddp["grads"], None),
+                                          ("updated weights", ref_weights, gpu_weights, ddp["weights"], init)):
+            for group in ("backbone", "neck", "heads", ""):
+                keys = [k for k in ref if k.startswith(group)]
+                scale = float(sum(((ref[k] - (base[k] if base else 0)) ** 2).sum() for k in keys) ** 0.5)
+                errs = {name: float(sum(((g[k] - ref[k]) ** 2).sum() for k in keys) ** 0.5)
+                        for name, g in (("two ranks", two), ("one GPU", gpu))}
+                print(f"[18b] {what} {group or 'all'} ({'norm' if base is None else 'moved'} {scale:.4g}): two-rank L2 "
+                      f"err {errs['two ranks']:.4g}, one-GPU L2 err {errs['one GPU']:.4g}")
+                check(errs["two ranks"] <= 2 * errs["one GPU"] + 1e-7 * scale,
+                      f"18b {what} ({group or 'all'}): the two-rank step more than twice as far from fp64 as the "
+                      f"one-GPU step")
+        bn = {k: max(r["bn"][k] for r in reports) for k in reports[0]["bn"]}  # the worse rank's
+        print(f"[18b] GlobalBatchNorm2d on {list(DDP_BN_SHAPE)} split over the two ranks against nn.BatchNorm2d on the "
+              f"whole batch in one process (fp32, TF32 off), |difference| over the largest magnitude: "
+              f"{json.dumps(bn)}, limit {DDP_BN_TOL}")
+        check(max(bn.values()) <= DDP_BN_TOL, f"18b: the global BN's batch statistics differ from one process: {bn}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.cuda.empty_cache()
+
+
+def phase_ddp_train(torch, np, data_root, work):
+    """18c: Trainer.train through the recipe on two ranks sharing the card over gloo, with
+    validation gathered over the ranks. Returns the ranks' K1 launches."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer
+    from super_gradients_tpu_torch.training.dataloaders import DataLoader
+    from super_gradients_tpu_torch.training.metrics import MetricCollection, get_metric
+
+    os.makedirs(work)
+    ckpt_root = os.path.join(work, "ckpt")
+    cuts = ddp_recipe_cuts(data_root, ckpt_root, 2)
+    seconds, out = launch_ranks(["--standalone", "--nproc_per_node=2"],
+                                ["train", work, "--config-name=roboflow_yolo_nas_m", *cuts])
+    reports = rank_reports(work, 2)
+    check("backend gloo, device cuda:0 (gloo on CUDA" in out, "18c ranks did not print their gloo group on the card")
+    valid = [r["valid"] for r in reports]
+    check(valid[0] == valid[1], f"18c: the ranks' gathered metrics differ: {valid}")
+    history = reports[0]["history"]
+    check(history == reports[1]["history"] and len(history) == 1 and np.isfinite(history).all(),
+          f"18c train losses {[r['history'] for r in reports]}")
+    launches = [r["launches"] for r in reports]
+    check(launches == [2, 2], f"18c K1 launches per rank in train_from_recipe {launches}, expected one a validation "
+                              f"batch on each (2)")
+    check(reports[1]["written"] == [] and reports[0]["written"], f"18c files written: rank 0 {reports[0]['written']}, "
+                                                                  f"rank 1 {reports[1]['written']}")
+    # one process over the whole validation set, the training's policy (bf16, EMA weights, channels_last) and
+    # the ranks' batch of 8, so that every image meets the same convolutions as on its rank
+    cfg = config.load_recipe("roboflow_yolo_nas_m", overrides=cuts[:-1] + ["val_batch_size=8"])
+    best_path = os.path.join(reports[0]["ckpt_dir"], "ckpt_best.pth")
+    model = models.get("yolo_nas_m", num_classes=80, checkpoint_path=best_path, device="cuda")
+    net = model.net.to(memory_format=torch.channels_last)
+    loader = Trainer._loader_from_cfg(cfg, "val")
+    metrics = MetricCollection([get_metric(m) for m in cfg["training_hyperparams"]["valid_metrics_list"]])
+    one = Trainer("chip_smoke_ddp_one")._run_eval_loop(net.eval(), None, metrics, loader, torch.device("cuda"), True,
+                                                        None, None, None)
+    close_loader(loader)
+    best = valid[0][-1]
+    diffs = {k: abs(best[k] - one[k]) for k in one}
+    # the second set (rank 0's): the best checkpoint's own detections, jittered, evaluated on the ranks and
+    # in one process at the ranks' 8 images a batch (fp32, TF32 off)
+    own_valid = [r["own_valid"] for r in reports]
+    check(own_valid[0] == own_valid[1], f"18c: the ranks' gathered metrics on the second set differ: {own_valid}")
+    own_launches = [r["own_launches"] for r in reports]
+    check(own_launches == [1, 1], f"18c K1 launches per rank in the second evaluation {own_launches}, expected 1")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        own_model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, checkpoint_path=best_path, device="cuda"))
+        own = torch.load(os.path.join(work, "own.pt"), weights_only=True)  # rank 0's set
+        own_one = Trainer("chip_smoke_ddp_own_one").evaluate(
+            own_model, DataLoader(own, batch_size=DDP_OWN_IMAGES // 2, drop_last=False),
+            metrics_list=[{"DetectionMetrics": {"num_cls": 80}}])
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+    own_diffs = {k: abs(own_valid[0][k] - own_one[k]) for k in own_one}
+    print(f"[18c] Trainer.train through train_from_recipe on two ranks sharing the card (gloo), 1 epoch of global "
+          f"b16 (8 a rank) at 640, bf16, {seconds:.1f} s (launcher included); losses {history}; gathered validation, "
+          f"equal on both ranks: {json.dumps(valid[0])}; K1 launches per rank {launches}; written by rank 0: "
+          f"{sorted(set(os.path.basename(p) for p in reports[0]['written']))}, by rank 1: none; one-process validation "
+          f"of ckpt_best.pth (bf16, b8): {json.dumps(one)}, |difference| {json.dumps(diffs)}, limit {RECIPE_EVAL_TOL}")
+    print(f"[18c] Trainer.evaluate of ckpt_best.pth (cls_pred biases 0, fp32) over both ranks on {DDP_OWN_IMAGES} noise "
+          f"images whose targets are its own detections jittered: {json.dumps(own_valid[0])}, equal on both ranks; one "
+          f"process (b8): {json.dumps(own_one)}, |difference| {json.dumps(own_diffs)}, limit {RECIPE_EVAL_TOL}; K1 "
+          f"launches per rank {own_launches}")
+    check(max(diffs.values()) <= RECIPE_EVAL_TOL, f"18c: the gathered metrics differ from one process: {diffs}")
+    check(0.2 <= own_valid[0]["mAP@0.50:0.95"] <= 0.9, f"18c: the second set's mAP {own_valid[0]['mAP@0.50:0.95']} "
+                                                        f"outside [0.2, 0.9]")
+    check(max(own_diffs.values()) <= RECIPE_EVAL_TOL, f"18c: the gathered metrics on the second set differ from one "
+                                                      f"process: {own_diffs}")
+    del model, net, own_model
+    torch.cuda.empty_cache()
+    return sum(launches) + sum(own_launches)
+
+
+def phase_ddp_across_cards(torch, work):
+    """18d: NCCL across cards, where the machine has two or more GPUs: the bf16 step at a
+    global b32 timed by part on each rank."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"[18d] {count} GPU, NCCL across cards not run")
+        return
+    os.makedirs(work)
+    seconds, _ = launch_ranks(["--standalone", "--nproc_per_node=2"], ["timing", work])
+    for r, report in enumerate(rank_reports(work, 2)):
+        print(f"[18d] rank {r} of 2 over NCCL on cuda:{r}, bf16 step at global b32 (16 a rank): {fmt_parts(report['ms'])}")
+    print(f"[18d] launch {seconds:.1f} s")
+
+
+# ---- the ranks' side (chip_smoke.py --ddp-rank <what> <work> [arguments])
+
+class WriteLog:
+    """Records every file this process opens for writing or saves with ``torch.save``."""
+
+    def __init__(self, torch):
+        import builtins
+
+        self.torch, self.builtins, self.paths = torch, builtins, []
+        self._open, self._save = builtins.open, torch.save
+
+    def __enter__(self):
+        def logged_open(file, mode="r", *a, **kw):
+            if any(m in mode for m in "wax+"):
+                self.paths.append(str(file))
+            return self._open(file, mode, *a, **kw)
+
+        def logged_save(obj, f, *a, **kw):
+            self.paths.append(str(f))
+            return self._save(obj, f, *a, **kw)
+
+        self.builtins.open, self.torch.save = logged_open, logged_save
+        return self
+
+    def __exit__(self, *exc):
+        self.builtins.open, self.torch.save = self._open, self._save
+
+
+def count_collectives(torch):
+    """Counts torch.distributed.all_reduce calls from here on; returns the counter."""
+    import torch.distributed as dist
+
+    counter = {"n": 0}
+    original = dist.all_reduce
+
+    def counted(*a, **kw):
+        counter["n"] += 1
+        return original(*a, **kw)
+
+    dist.all_reduce = counted
+    return counter
+
+
+def write_report(work, report):
+    import torch.distributed as dist
+
+    with open(os.path.join(work, f"rank{dist.get_rank()}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def rank_entry(torch, work, argv):
+    """18a's rank: the entry point module run as ``-m`` runs it."""
+    import runpy
+
+    from super_gradients_tpu_torch.ops.kernels import nms_exact
+
+    collectives = count_collectives(torch)
+    sys.argv = ["super_gradients_tpu_torch.train_from_recipe", *argv]
+    runpy.run_module("super_gradients_tpu_torch.train_from_recipe", run_name="__main__", alter_sys=True)
+    from super_gradients_tpu_torch.common.environment import get_latest_run_id, get_checkpoints_dir_path
+    from super_gradients_tpu_torch.common import config
+
+    cfg = config.load_recipe(argv[0].split("=", 1)[1], overrides=argv[1:])
+    ckpt_dir = get_checkpoints_dir_path(cfg["experiment_name"], cfg["ckpt_root_dir"],
+                                        get_latest_run_id(cfg["experiment_name"], cfg["ckpt_root_dir"]))
+    ckpt = torch.load(os.path.join(ckpt_dir, "ckpt_latest.pth"), map_location="cpu", weights_only=False)
+    with open(os.path.join(ckpt_dir, "events.jsonl")) as f:
+        history = [e["value"] for e in map(json.loads, f) if e.get("tag") == "Train/loss"]
+    launches = nms_exact.exact_nms_keep.launches
+    write_report(work, {"launches": launches, "history": history, "valid": ckpt["metrics"], "ckpt_dir": ckpt_dir,
+                        "collectives": collectives["n"], "bn": bn_bf16_check(torch),
+                        "ms": ddp_step_ms(torch, 16, tuple(STEP_VARIANTS))})
+
+
+def rank_step(torch, work):
+    """18b's rank: its two images of the global batch of 4 with the fp64 run's assignment,
+    then the global BN alone on a seeded activation."""
+    import torch.distributed as dist
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.parallel import GlobalBatchNorm2d, local_batch_slice, setup_device
+    from super_gradients_tpu_torch.training.losses.ppyolo_loss import AssignResult
+
+    setup_device(backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = torch.load(os.path.join(work, "batch.pt"), weights_only=True)
+    part = local_batch_slice(DDP_STEP_SAMPLES)
+    assign = AssignResult(*(t[part] for t in batch["assign"]))
+    _, comps, grads, weights = ddp_one_step(torch, models, "cuda", torch.float32, batch["images"][part],
+                                            batch["targets"][part], assign)
+    if dist.get_rank() == 0:
+        torch.save({"grads": grads, "weights": weights}, os.path.join(work, "step.pt"))
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = (torch.randn(DDP_BN_SHAPE, generator=gen, device="cuda") * 3.0 + 1.5).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(DDP_BN_SHAPE, generator=gen, device="cuda")
+    ref = torch.nn.BatchNorm2d(DDP_BN_SHAPE[1], momentum=0.03).cuda()
+    glob = GlobalBatchNorm2d(DDP_BN_SHAPE[1], momentum=0.03).cuda()
+    xr, xg = x.clone().requires_grad_(), x[part].clone().requires_grad_()
+    yr, yg = ref(xr), glob(xg)
+    yr.backward(dy)
+    yg.backward(dy[part])
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    bn = {"output": rel(yg, yr[part]), "input gradient": rel(xg.grad, xr.grad[part]),
+          "running_mean": rel(glob.running_mean, ref.running_mean), "running_var": rel(glob.running_var, ref.running_var)}
+    write_report(work, {"comps": comps, "bn": bn})
+
+
+DDP_OWN_IMAGES = 16  # 18c's second validation set: seeded noise images, targets the trained model's own detections
+
+
+def own_detection_set(torch, np, model):
+    """``DDP_OWN_IMAGES`` seeded noise images at 640 and, as targets, ``model``'s detections of
+    them jittered by 8% of each box's size (phase 10's scheme), fp32 with TF32 off."""
+    from super_gradients_tpu_torch.training.metrics import DetectionMetrics, to_host
+
+    images = torch.rand((DDP_OWN_IMAGES, 3, 640, 640), generator=torch.Generator().manual_seed(7))
+    with torch.inference_mode():
+        x = images.cuda().contiguous(memory_format=torch.channels_last)
+        own = own_detection_targets(np, to_host(DetectionMetrics(num_cls=80).preprocess_device(model.net(x), None)))
+    wh = np.concatenate([own[..., 3:5] - own[..., 1:3]] * 2, -1)
+    own[..., 1:5] += np.random.RandomState(8).randn(*wh.shape).astype(np.float32) * 0.08 * wh
+    return [(images[i], torch.from_numpy(own[i])) for i in range(DDP_OWN_IMAGES)]
+
+
+def rank_train(torch, work, argv):
+    """18c's rank: train_from_recipe in a gloo group on the card (rank 1 records what it
+    writes), then ``Trainer.evaluate`` of the best checkpoint, its ``cls_pred`` biases at 0,
+    on a set whose targets are its own detections, over both ranks."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch.ops.kernels import nms_exact
+    from super_gradients_tpu_torch.parallel import setup_device
+    from super_gradients_tpu_torch.training import Trainer
+    from super_gradients_tpu_torch.training.dataloaders import DataLoader
+
+    setup_device(backend="gloo")
+    with WriteLog(torch) as log:
+        _, trainer = train_from_recipe.main(argv)
+    launches = nms_exact.exact_nms_keep.launches
+    root = os.path.dirname(os.path.dirname(trainer.ckpt_dir))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    best = os.path.join(trainer.ckpt_dir, "ckpt_best.pth")
+    model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, checkpoint_path=best, device="cuda"))
+    own = own_detection_set(torch, np, model)
+    if dist.get_rank() == 0:
+        torch.save(own, os.path.join(work, "own.pt"))
+    loader = DataLoader(own, batch_size=DDP_OWN_IMAGES, drop_last=False)  # the global batch: 8 images a rank
+    nms_exact.exact_nms_keep.launches = 0
+    own_valid = Trainer("chip_smoke_ddp_own").evaluate(model, loader, metrics_list=[{"DetectionMetrics": {"num_cls": 80}}])
+    write_report(work, {"launches": launches, "own_launches": nms_exact.exact_nms_keep.launches,
+                        "history": trainer.train_loss_history,
+                        "valid": trainer.valid_metrics_history, "ckpt_dir": trainer.ckpt_dir,
+                        "written": [p for p in log.paths if p.startswith(root)], "own_valid": own_valid})
+    dist.barrier()
+
+
+class forced_global_bn:
+    """Within it, ``GlobalBatchNorm2d`` takes the global path even in a group of one rank
+    (where the port keeps cuDNN's BN), so its cost on the card can be read there."""
+
+    def __enter__(self):
+        from super_gradients_tpu_torch.parallel import sync_batch_norm
+
+        self.module, self.original = sync_batch_norm, sync_batch_norm.is_distributed
+        sync_batch_norm.is_distributed = lambda: True
+
+    def __exit__(self, *exc):
+        self.module.is_distributed = self.original
+
+
+def bn_bf16_check(torch):
+    """18a's rank: the global BN, forced on, against nn.BatchNorm2d on one bf16 channels_last
+    activation (output, gradients, running buffers), and both timed forward + backward."""
+    from super_gradients_tpu_torch.parallel import GlobalBatchNorm2d
+
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    c = DDP_BN_BF16_SHAPE[1]
+    x = (torch.randn(DDP_BN_BF16_SHAPE, generator=gen) * 2 + 0.5).cuda().to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_()
+    gy = torch.randn(DDP_BN_BF16_SHAPE, generator=gen).cuda().to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    weight, bias = torch.rand(c, generator=gen) + 0.5, torch.randn(c, generator=gen)
+    out = {}
+    for name, cls in (("global", GlobalBatchNorm2d), ("plain", torch.nn.BatchNorm2d)):
+        bn = cls(c, momentum=0.03).cuda()
+        with torch.no_grad():
+            bn.weight.copy_(weight)
+            bn.bias.copy_(bias)
+        with forced_global_bn():
+            x.grad = None
+            y = bn(x)
+            y.backward(gy)
+            out[name] = dict(output=y, input_gradient=x.grad, weight_gradient=bn.weight.grad,
+                             bias_gradient=bn.bias.grad, running_mean=bn.running_mean, running_var=bn.running_var)
+            out[name] = {k: v.detach().float().clone() for k, v in out[name].items()}
+
+            def run(events=None):
+                marks = [lambda: None] * 2 if events is None else [e.record for e in events]
+                marks[0]()
+                bn(x).backward(gy)
+                marks[1]()
+
+            for _ in range(3):
+                run()
+            events = [[torch.cuda.Event(enable_timing=True) for _ in range(2)] for _ in range(20)]
+            for ev in events:
+                run(ev)
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = sum(a.elapsed_time(b) for a, b in events) / len(events)
+            prof, _ = profiled(torch, run, 10)
+            out[f"{name}_busy_ms"] = sum(_self_device_us(e) for e in prof) / 1e4
+            out[f"{name}_host"] = ", ".join(f"{e.key[:40]} x{e.count // 10} {e.self_cpu_time_total / 10:.0f} us"
+                                            for e in sorted(prof, key=lambda e: -e.self_cpu_time_total)[:8])
+    err = {k: float((out["global"][k] - ref).abs().max() / ref.abs().max()) for k, ref in out["plain"].items()}
+    return {"err": err, **{f"{v}_{k}": out[f"{v}_{k}"] for v in ("global", "plain") for k in ("ms", "busy_ms", "host")}}
+
+
+STEP_VARIANTS = {  # name: (through DDP, global BN forced on)
+    "ddp": (True, False),  # as Trainer.prepare builds the step in the group
+    "one_process": (False, False),  # the same step with DDP's wrapper left out
+    "global_bn": (True, True),  # DDP, and the global BN even in a group of one rank
+}
+
+
+def ddp_step_ms(torch, global_batch, variants=("ddp",)):
+    """The bf16 step of YOLO-NAS-M at 640 on this rank's slice of a global batch, as
+    ``Trainer.prepare`` builds it in the process group, ms by part (CUDA events, phase 9's
+    count), for each of ``variants`` (``STEP_VARIANTS``) on one model, timed in the order
+    given and then in reverse, and averaged: {variant: ms by part}."""
+    import contextlib
+
+    import numpy as np
+
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.parallel import convert_batch_norm, local_batch_slice
+    from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
+
+    model = models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda")
+    step = Trainer("chip_smoke_ddp_timing").prepare(model, dict(COCO_YOLO_NAS, lr_warmup_steps=1000), steps_per_epoch=100)
+    convert_batch_norm(step.state.net)  # in one rank it keeps nn.BatchNorm2d's path unless forced
+    dataset = RandomDetectionDataset(num_samples=global_batch, image_size=(640, 640), num_classes=80, max_boxes=120)
+    part = range(global_batch)[local_batch_slice(global_batch)]
+    images, targets = (torch.from_numpy(np.stack(t)) for t in zip(*(dataset[i] for i in part)))
+    images = images.cuda().contiguous(memory_format=torch.channels_last)
+    targets = targets.cuda()
+    ddp, runs = step.ddp, {v: [] for v in variants}
+    for name in [*variants, *reversed(variants)]:
+        through_ddp, force = STEP_VARIANTS[name]
+        step.ddp = ddp if through_ddp else None
+        with forced_global_bn() if force else contextlib.nullcontext():
+            runs[name].append(time_by_part(torch, step_runner(step, images, targets)))
+    del step, model, images, targets
+    torch.cuda.empty_cache()
+    return {v: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]} for v, rs in runs.items()}
+
+
+def rank_timing(torch, work):
+    """18d's rank: the bf16 step at global b32 over NCCL, ms by part."""
+    from super_gradients_tpu_torch.parallel import setup_device
+
+    setup_device()
+    write_report(work, {"ms": ddp_step_ms(torch, 32)["ddp"]})
+
+
+def ddp_rank_main(args):
+    """``chip_smoke.py --ddp-rank <entry|step|train|timing> <work> [arguments]``: one rank of
+    phase 18, started by torch.distributed.run."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    what, work, rest = args[0], args[1], args[2:]
+    if what == "entry":
+        rank_entry(torch, work, rest)
+    elif what == "step":
+        rank_step(torch, work)
+    elif what == "train":
+        rank_train(torch, work, rest)
+    elif what == "timing":
+        rank_timing(torch, work)
+    else:
+        raise ValueError(f"unknown rank body {what!r}")
+    return 0
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -3378,7 +4011,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
         train_launches = phase_train(torch, np, models, nms_exact, ckpt_root)
         phase_train_gpu_vs_cpu(torch, np, models)
-        phase_train_timing(torch, np, models)
+        one_process_ms = phase_train_timing(torch, np, models)
         phase_validation(torch, np, models, nms_exact, ckpt_root)
         max_err = max(max_err, phase_validation_timing(torch, np, models, nms_exact))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
@@ -3400,8 +4033,10 @@ def main():
         ssd_launches, ssd_err = phase_mobilenet_ssd(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou),
                                                     root)
     max_err = max(max_err, ssd_err)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as root:
+        ddp_launches = phase_ddp(torch, np, root, one_process_ms)
 
-    print(f"chip_smoke: phases 1-17 passed in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-18 passed in {time.perf_counter() - t_script:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")
@@ -3409,7 +4044,7 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches + zoo_launches
-        + ssd_launches,
+        + ssd_launches + ddp_launches,
         "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)
@@ -3420,4 +4055,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ddp_rank_main(sys.argv[2:]) if sys.argv[1:2] == ["--ddp-rank"] else main())

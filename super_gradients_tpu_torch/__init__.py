@@ -12,8 +12,9 @@ ops alone does not build the model zoo.
 __version__ = "0.1.0"
 
 _LAZY = {
-    "models": "super_gradients_tpu_torch.models",
-    "training": "super_gradients_tpu_torch.training",
+    "models": ("super_gradients_tpu_torch.models", None),
+    "training": ("super_gradients_tpu_torch.training", None),
+    "setup_device": ("super_gradients_tpu_torch.parallel.mesh", "setup_device"),
 }
 
 
@@ -21,10 +22,12 @@ def __getattr__(name):
     if name in _LAZY:
         import importlib
 
-        mod = importlib.import_module(_LAZY[name])
-        globals()[name] = mod
-        return mod
+        module_name, attr = _LAZY[name]
+        mod = importlib.import_module(module_name)
+        obj = mod if attr is None else getattr(mod, attr)
+        globals()[name] = obj
+        return obj
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["models", "training", "__version__"]
+__all__ = ["models", "training", "setup_device", "__version__"]

@@ -1,8 +1,9 @@
-"""Checkpoint directory layout (counterpart of ``super_gradients_tpu/common/environment.py``).
+"""Checkpoint directory layout (counterpart of ``super_gradients_tpu/common/environment.py``)
+and this process's place in a ``torch.distributed`` run.
 
 ``ckpt_root_dir/<experiment_name>/RUN_<YYYYMMDD_HHMMSS>/``; without a
 ``ckpt_root_dir`` the root is ``$SG_TPU_HOME`` (default ``~/sg_tpu_checkpoints``),
-as in the JAX package.
+as in the JAX package. Without a process group this process is rank 0 of 1.
 """
 
 from __future__ import annotations
@@ -15,11 +16,38 @@ from typing import List, Optional
 _RUN_DIR_RE = re.compile(r"^RUN_(\d{8}_\d{6})$")
 
 
-def is_primary_process() -> bool:
-    """True unless this is a ``torch.distributed`` process of rank > 0."""
+def process_group_active() -> bool:
+    """True inside a ``torch.distributed`` process group (of any size, one included)."""
     import torch.distributed as dist
 
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+    return dist.is_available() and dist.is_initialized()
+
+
+def get_rank() -> int:
+    """This process's rank in the process group; 0 without one."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if process_group_active() else 0
+
+
+def get_world_size() -> int:
+    """The number of ranks in the process group; 1 without one."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if process_group_active() else 1
+
+
+def is_primary_process() -> bool:
+    """True unless this is a ``torch.distributed`` process of rank > 0."""
+    return get_rank() == 0
+
+
+def barrier() -> None:
+    """Wait for every rank (a no-op in one process): a write by rank 0 is done for all."""
+    import torch.distributed as dist
+
+    if process_group_active():
+        dist.barrier()
 
 
 def checkpoints_home() -> str:

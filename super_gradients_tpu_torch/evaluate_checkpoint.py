@@ -18,8 +18,10 @@ def main(argv=None):
     parser.add_argument("--run_id", "--run-id", dest="run_id", default=None)
     args = parser.parse_args(argv)
 
+    from super_gradients_tpu_torch.parallel.mesh import setup_device
     from super_gradients_tpu_torch.training.trainer import Trainer
 
+    setup_device()
     results = Trainer.evaluate_checkpoint(
         experiment_name=args.experiment_name,
         ckpt_root_dir=args.ckpt_root_dir,

@@ -17,10 +17,12 @@ def main(argv=None):
 
     from super_gradients_tpu_torch import models
     from super_gradients_tpu_torch.common.config import load_recipe
+    from super_gradients_tpu_torch.parallel.mesh import setup_device
     from super_gradients_tpu_torch.training import dataloaders
     from super_gradients_tpu_torch.training.trainer import Trainer
 
     cfg = load_recipe(args.config_name, config_dir=args.config_dir, overrides=args.overrides)
+    setup_device(num_devices=cfg.get("num_devices"), device=cfg.get("device") or "cuda")
     model = models.get(
         cfg["architecture"],
         num_classes=cfg.get("num_classes"),

@@ -20,8 +20,10 @@ def main(argv=None):
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
 
+    from super_gradients_tpu_torch.parallel.mesh import setup_device
     from super_gradients_tpu_torch.training.trainer import Trainer
 
+    setup_device()
     try:
         return Trainer.resume_experiment(args.experiment_name, ckpt_root_dir=args.ckpt_root_dir, run_id=args.run_id)
     except (FileNotFoundError, ValueError):

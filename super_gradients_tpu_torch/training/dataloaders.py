@@ -217,21 +217,105 @@ def loader_max_value(loader) -> Optional[float]:
     return value if value is not None else getattr(getattr(loader, "dataset", None), "max_value", None)
 
 
+def sample_seed(seed: int, epoch: int, position: int) -> int:
+    """The seed of the sample at ``position`` in an epoch's order, under a process group."""
+    return int(np.random.SeedSequence([seed, epoch, position]).generate_state(1)[0])
+
+
+class SeededSamples(torch.utils.data.Dataset):
+    """``dataset`` read by ``(index, seed)`` keys: reseeded before each sample, so that its
+    random transforms depend on the sample's place in the epoch, not on the rank or the
+    worker that loads it. Every other attribute, read or set, is the dataset's."""
+
+    def __init__(self, dataset):
+        object.__setattr__(self, "inner", dataset)
+
+    def __getitem__(self, key):
+        index, seed = key
+        self.inner.reseed(seed)
+        return self.inner[index]
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __getattr__(self, name):
+        if name == "inner":  # not set yet (an unpickled copy)
+            raise AttributeError(name)
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        setattr(self.inner, name, value)
+
+
+class RankBatches(torch.utils.data.Sampler):
+    """The global batches of ``order`` (``batch_size`` items, the last one shorter unless
+    ``drop_last``), each cut to this rank's :func:`~super_gradients_tpu_torch.parallel.mesh.local_batch_slice`.
+    With ``seeded``, each index comes with its sample's seed (:class:`SeededSamples`)."""
+
+    def __init__(self, order, batch_size: int, drop_last: bool, seed: int, seeded: bool):
+        from super_gradients_tpu_torch.common.environment import get_world_size
+
+        world = get_world_size()
+        if batch_size % world:
+            raise ValueError(f"batch_size {batch_size} is the global batch: it must divide into the {world} ranks")
+        last = len(order) % batch_size
+        if not drop_last and 0 < last < world:
+            raise ValueError(f"the last batch holds {last} items, fewer than the {world} ranks: set drop_last=True "
+                             f"or a batch size that leaves at least one item a rank")
+        self.order, self.batch_size, self.drop_last, self.seed, self.seeded = order, batch_size, drop_last, seed, seeded
+
+    def __iter__(self):
+        from super_gradients_tpu_torch.parallel.mesh import local_batch_slice
+
+        epoch = getattr(self.order, "epoch", 0)
+        indices = list(self.order)
+        for start in range(0, len(self) * self.batch_size, self.batch_size):
+            batch = indices[start:start + self.batch_size]
+            positions = range(start, start + len(batch))[local_batch_slice(len(batch))]
+            yield [(indices[p], sample_seed(self.seed, epoch, p)) if self.seeded else indices[p] for p in positions]
+
+    def __len__(self):
+        n = len(self.order)
+        return n // self.batch_size if self.drop_last else math.ceil(n / self.batch_size)
+
+
 class DataLoader(torch.utils.data.DataLoader):
     """A torch DataLoader over an :class:`EpochSampler` (or over ``sampler``, which then
     sets the order alone: ``shuffle`` and ``min_samples`` are not used), with
     ``set_epoch`` and the dataset's ``max_value`` (None when its images are already
-    standardized)."""
+    standardized).
+
+    ``batch_size`` is the global batch. Under a process group each rank loads its slice
+    of every global batch (:class:`RankBatches`): the ranks share the epoch's order, so
+    the loader has the one-process loader's length, and a dataset with ``reseed`` draws
+    each sample's augmentation from the sample's seed (:class:`SeededSamples`), so the
+    global batches do not depend on the world size. Without a group the draws come from
+    the dataset's (or its worker's) generator in loading order, as the JAX loader's do:
+    N ranks equal a one-rank launch, not that stream. A ``sampler`` that splits the order
+    over the ranks itself (``num_replicas`` > 1) is batched by ``batch_size / world``."""
 
     def __init__(self, dataset, batch_size: int = 32, shuffle: bool = False, drop_last: bool = True,
                  collate_fn: Optional[Callable] = None, seed: int = 0, min_samples: Optional[int] = None,
                  sampler=None, num_workers: int = 0, prefetch_factor: int = 2):
+        from super_gradients_tpu_torch.common.environment import get_world_size, process_group_active
+
         num_workers = int(num_workers)
+        order = sampler if sampler is not None else EpochSampler(len(dataset), shuffle, seed, min_samples)
+        batching = dict(batch_size=int(batch_size), sampler=order, drop_last=drop_last)
+        if process_group_active():
+            world = get_world_size()
+            if int(getattr(order, "num_replicas", 1)) > 1:
+                if batch_size % world:
+                    raise ValueError(f"batch_size {batch_size} is the global batch: it must divide into the {world} "
+                                     f"ranks")
+                batching["batch_size"] = int(batch_size) // world
+            else:
+                seeded = hasattr(dataset, "reseed")
+                dataset = SeededSamples(dataset) if seeded else dataset
+                batching = dict(batch_sampler=RankBatches(order, int(batch_size), drop_last, seed, seeded))
         super().__init__(
             dataset,
-            batch_size=int(batch_size),
-            sampler=sampler if sampler is not None else EpochSampler(len(dataset), shuffle, seed, min_samples),
-            drop_last=drop_last,
+            **batching,
             collate_fn=collate_fn,
             num_workers=num_workers,
             pin_memory=torch.cuda.is_available(),
@@ -240,10 +324,11 @@ class DataLoader(torch.utils.data.DataLoader):
             worker_init_fn=_seed_worker,
             generator=torch.Generator().manual_seed(seed),
         )
+        self.order = order
 
     def set_epoch(self, epoch: int) -> None:
-        if hasattr(self.sampler, "set_epoch"):
-            self.sampler.set_epoch(epoch)
+        if hasattr(self.order, "set_epoch"):
+            self.order.set_epoch(epoch)
 
     def restart_workers(self) -> None:
         """Shut the persistent workers down: the next iteration starts new ones from the

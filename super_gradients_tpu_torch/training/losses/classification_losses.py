@@ -5,7 +5,10 @@ Each loss is ``loss(outputs, targets) -> (loss, {name: loss})``. Targets are int
 ``[B]`` or one-hot / soft rows ``[B, C]``; an int label outside ``[0, C)`` is a row of
 zeros, as ``jax.nn.one_hot`` makes it. Label smoothing is optax's ``smooth_labels``,
 ``onehot * (1 - eps) + eps / C``, written out: ``F.cross_entropy(label_smoothing=)``
-smooths only int targets.
+smooths only int targets. Under a process group the means are over the global batch
+(``parallel/collectives.py::global_mean``), so a final uneven batch stays exact;
+``RSquaredLoss``, whose denominator is a variance about the batch's mean, refuses to run
+across ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_mean, refuse_across_ranks
 
 
 def _one_hot(targets: torch.Tensor, outputs: torch.Tensor) -> torch.Tensor:
@@ -39,7 +43,7 @@ class CrossEntropyLoss:
         onehot = _one_hot(targets, outputs)
         if self.label_smoothing:
             onehot = onehot * (1.0 - self.label_smoothing) + self.label_smoothing / outputs.shape[-1]
-        loss = -(onehot * F.log_softmax(outputs, dim=-1)).sum(dim=-1).mean()
+        loss = global_mean(-(onehot * F.log_softmax(outputs, dim=-1)).sum(dim=-1))
         return loss, {"CrossEntropyLoss": loss}
 
 
@@ -63,7 +67,7 @@ class FocalLoss:
         ce = -onehot * F.logsigmoid(outputs) - (1.0 - onehot) * F.logsigmoid(-outputs)
         p_t = p * onehot + (1 - p) * (1 - onehot)
         alpha_t = self.alpha * onehot + (1 - self.alpha) * (1 - onehot)
-        loss = (alpha_t * (1 - p_t) ** self.gamma * ce).sum(dim=-1).mean()
+        loss = global_mean((alpha_t * (1 - p_t) ** self.gamma * ce).sum(dim=-1))
         return loss, {"FocalLoss": loss}
 
 
@@ -72,7 +76,7 @@ class MSELoss:
     """Mean squared error, the targets reshaped to the outputs."""
 
     def __call__(self, outputs: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
-        loss = ((outputs - targets.reshape(outputs.shape).to(outputs.dtype)) ** 2).mean()
+        loss = global_mean((outputs - targets.reshape(outputs.shape).to(outputs.dtype)) ** 2)
         return loss, {"MSE": loss}
 
 
@@ -81,6 +85,7 @@ class RSquaredLoss:
     """``1 - R^2`` as the JAX loss computes it: ``sum((t - o)^2) / (sum((t - mean t)^2) + 1e-9)``."""
 
     def __call__(self, outputs: torch.Tensor, targets: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        refuse_across_ranks(type(self).__name__)
         outputs = outputs.reshape(targets.shape)
         targets = targets.to(outputs.dtype)
         ss_res = ((targets - outputs) ** 2).sum()

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_normalizer
 from super_gradients_tpu_torch.ops.bbox import batch_distance2bbox, box_iou
 from super_gradients_tpu_torch.ops.dfl import dfl_decode
 
@@ -340,7 +341,8 @@ class PPYoloELoss:
         else:
             cls_loss_sum = focal_loss(cls_logits, assign.scores, 0.25 if self.use_static_assigner else -1.0)
 
-        assigned_scores_sum = assign.scores.sum().clamp(min=1.0)
+        # the global batch's sum, clamped as JAX clamps it, shared out over the ranks
+        assigned_scores_sum = global_normalizer(assign.scores.sum())
 
         # box losses on the positives, masked (not gathered)
         mask_positive = (assign.labels != self.num_classes).to(assign.scores.dtype)  # [B, L]

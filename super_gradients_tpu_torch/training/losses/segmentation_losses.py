@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_normalizer, refuse_across_ranks
 
 
 def _fp32(x: torch.Tensor) -> torch.Tensor:
@@ -57,7 +58,7 @@ class SegCrossEntropyLoss:
 
     def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
         ce = pixel_cross_entropy(_main(outputs), targets, self.ignore_index)
-        loss = ce.sum() / _valid_mask(targets, self.ignore_index).sum().clamp(min=1.0)
+        loss = ce.sum() / global_normalizer(_valid_mask(targets, self.ignore_index).sum())
         return loss, {"SegCrossEntropyLoss": loss}
 
 
@@ -75,6 +76,7 @@ class OhemCELoss:
         self.ignore_lb = ignore_lb
 
     def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         ce = pixel_cross_entropy(_main(outputs), targets, self.ignore_lb).reshape(-1)
         valid = _valid_mask(targets, self.ignore_lb).reshape(-1)
         n_valid = valid.sum().to(torch.int32)
@@ -111,6 +113,7 @@ class DiceLoss:
         self.ignore_index = ignore_index
 
     def __call__(self, outputs, targets):
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         loss = soft_dice(_main(outputs), targets, self.ignore_index)
         return loss, {"DiceLoss": loss}
 
@@ -120,6 +123,7 @@ class BinaryDiceLoss:
     """Dice of ``sigmoid(logits [B, 1, H, W])`` against a binary map ``[B, H, W]``, smoothed by 1."""
 
     def __call__(self, logits, targets_binary):
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         p = torch.sigmoid(_fp32(logits))[:, 0]
         inter = (p * targets_binary).sum(dim=(1, 2))
         denom = p.sum(dim=(1, 2)) + targets_binary.sum(dim=(1, 2))
@@ -168,6 +172,7 @@ class STDCLoss:
         self.detail_weights = tuple(detail_weights)  # bce, dice
 
     def __call__(self, outputs, targets):
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         if not isinstance(outputs, (tuple, list)):
             loss, _ = self.ohem(outputs, targets)
             return loss, {"STDCLoss/main": loss}
@@ -197,6 +202,7 @@ class DiceCEEdgeLoss:
         self.ce = SegCrossEntropyLoss(ignore_index)
 
     def __call__(self, outputs, targets):
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         if not isinstance(outputs, (tuple, list)):
             outputs = (outputs,)
         main = outputs[0]
@@ -218,6 +224,7 @@ class BCEDiceLoss:
         self.loss_weights = tuple(loss_weights)
 
     def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        refuse_across_ranks(type(self).__name__)  # a statistic over the whole batch
         logits = _main(outputs)
         t = targets.float()
         z = logits[:, 0] if logits.dim() == t.dim() + 1 else logits

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_normalizer
 from super_gradients_tpu_torch.ops.bbox import box_iou
 
 
@@ -100,7 +101,7 @@ class SSDLoss:
         anchors, _ = self._anchors_on(loc_raw.device)
         pos, best_gt_idx, conf_target = self.match(targets.to(loc_raw.device))
         pos_f = pos.to(loc_raw.dtype)
-        num_pos = pos_f.sum().clamp(min=1.0)
+        num_pos = global_normalizer(pos_f.sum())  # the global batch's, shared out
 
         gt_boxes = targets[..., 1:5].to(loc_raw)
         matched_boxes = torch.gather(gt_boxes, 1, best_gt_idx[..., None].expand(b, a, 4))

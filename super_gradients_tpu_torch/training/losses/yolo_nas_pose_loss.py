@@ -22,6 +22,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_normalizer
 from super_gradients_tpu_torch.models.class_names import COCO_POSE_SIGMAS
 from super_gradients_tpu_torch.ops.bbox import batch_distance2bbox
 from super_gradients_tpu_torch.ops.dfl import dfl_decode
@@ -167,7 +168,7 @@ class YoloNASPoseLoss:
         dtype = cls_logits.dtype
 
         cls_loss_sum = focal_loss(cls_logits[..., 0], assign.scores[..., 0], alpha=-1.0)
-        assigned_scores_sum = assign.scores.sum().clamp(min=1.0)
+        assigned_scores_sum = global_normalizer(assign.scores.sum())
 
         mask_positive = (assign.labels != 1).to(dtype)  # background index 1: one class
         bbox_weight = assign.scores[..., 0] * mask_positive
@@ -202,7 +203,7 @@ class YoloNASPoseLoss:
         if self.rescale_pose_loss:
             pose_w, denom = bbox_weight, assigned_scores_sum
         else:
-            pose_w, denom = mask_positive, mask_positive.sum().clamp(min=1.0)
+            pose_w, denom = mask_positive, global_normalizer(mask_positive.sum())
         pose_reg_sum = torch.sum(reg_per_anchor * pose_w)
         pose_cls_sum = torch.sum(pose_cls_per_anchor * pose_w)
 

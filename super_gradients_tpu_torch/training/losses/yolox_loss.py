@@ -28,7 +28,9 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from super_gradients_tpu_torch.common.environment import get_world_size
 from super_gradients_tpu_torch.common.registry import register_loss
+from super_gradients_tpu_torch.parallel.collectives import global_normalizer
 from super_gradients_tpu_torch.ops.bbox import box_iou, elementwise_iou
 from super_gradients_tpu_torch.training.losses.ppyolo_loss import _bce_with_logits, _sorted_indices
 
@@ -132,17 +134,18 @@ class YoloXDetectionLoss:
         pred_boxes, st = outputs.pred_bboxes, outputs.stride_tensor
         fg, matched_gt, _ = self.assign(outputs, targets)
         fg_f = fg.to(pred_boxes.dtype)
-        num_fg = fg_f.sum().clamp(min=1.0)
+        denom = global_normalizer(fg_f.sum())  # the global batch's, shared out
+        num_fg = denom * get_world_size()  # the global batch's, as logged
 
-        obj_loss = _bce_with_logits(outputs.obj_logits, fg_f).sum() / num_fg
+        obj_loss = _bce_with_logits(outputs.obj_logits, fg_f).sum() / denom
 
         tgt_labels = torch.gather(gt_labels, 1, matched_gt)
         tgt_onehot = F.one_hot(tgt_labels, self.num_classes).to(outputs.cls_logits.dtype)
-        cls_loss = (_bce_with_logits(outputs.cls_logits, tgt_onehot).sum(-1) * fg_f).sum() / num_fg
+        cls_loss = (_bce_with_logits(outputs.cls_logits, tgt_onehot).sum(-1) * fg_f).sum() / denom
 
         tgt_boxes = torch.gather(gt_boxes, 1, matched_gt[..., None].expand(*matched_gt.shape, 4))
         iou = elementwise_iou(pred_boxes, tgt_boxes)
-        iou_loss = ((1.0 - iou ** 2) * fg_f).sum() / num_fg
+        iou_loss = ((1.0 - iou ** 2) * fg_f).sum() / denom
 
         loss = self.iou_weight * iou_loss + self.obj_weight * obj_loss + self.cls_weight * cls_loss
         aux = {"iou": iou_loss, "obj": obj_loss, "cls": cls_loss, "num_fg": num_fg}
@@ -158,7 +161,7 @@ class YoloXDetectionLoss:
                 torch.log((tw / s).clamp(min=1e-8)),
                 torch.log((th / s).clamp(min=1e-8)),
             ], -1)
-            l1 = ((outputs.reg_raw - l1_target).abs() * fg_f[..., None]).sum() / num_fg
+            l1 = ((outputs.reg_raw - l1_target).abs() * fg_f[..., None]).sum() / denom
             loss = loss + l1
             aux["l1"] = l1
         return loss, aux

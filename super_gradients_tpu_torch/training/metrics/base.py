@@ -6,6 +6,11 @@ decode, top-k) and its result goes to the host once per batch
 (:func:`to_host`); :meth:`Metric.update` then runs on the host in numpy, and
 :meth:`Metric.compute` reduces the state to floats. A metric without
 ``host_update`` updates from the outputs where they lie.
+
+Under a process group each rank updates on its slice of the data, and
+:meth:`MetricCollection.compute` makes every metric global: a device metric's state
+(counts, confusion matrices) is summed over the ranks (:meth:`Metric.reduce_across_processes`),
+and a host metric gathers its state in its own ``compute``, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -13,6 +18,8 @@ from __future__ import annotations
 from typing import Any, Dict, Sequence
 
 import torch
+
+from super_gradients_tpu_torch.parallel.collectives import ROADMAP_DDP, sum_across_processes
 
 
 def to_host(tree: Any) -> Any:
@@ -53,6 +60,17 @@ class Metric:
     def compute(self, state: Any) -> Dict[str, float]:
         raise NotImplementedError
 
+    def reduce_across_processes(self, state: Any) -> Any:
+        """The state over every rank's data: each count summed (unchanged in one process).
+        A host metric gathers its state in :meth:`compute` instead."""
+        if self.host_update:
+            return state
+        try:
+            return sum_across_processes(state)
+        except TypeError as e:
+            raise NotImplementedError(f"{type(self).__name__}: its state does not sum across ranks ({e}); "
+                                      f"{ROADMAP_DDP}") from e
+
 
 class MetricCollection:
     """Named collection with a combined state tuple."""
@@ -81,5 +99,5 @@ class MetricCollection:
     def compute(self, states) -> Dict[str, float]:
         out: Dict[str, float] = {}
         for m, s in zip(self.metrics, states):
-            out.update(m.compute(s))
+            out.update(m.compute(m.reduce_across_processes(s)))
         return out

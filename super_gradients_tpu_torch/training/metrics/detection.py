@@ -5,7 +5,8 @@ the JAX package's, line for line, so that both compute the same numbers from the
 same NMS outputs. ``DetectionMetrics.preprocess_device`` runs ``ops.nms.batched_nms``
 on the model's device: with ``nms_mode="exact"`` on a CUDA model that is kernel K1,
 once per validation batch. The NMS output then goes to the host, where greedy IoU
-matching and AP accumulation run in numpy.
+matching and AP accumulation run in numpy. Under a process group each rank matches its
+slice of the data and ``compute`` gathers every rank's matches in the one-process order.
 """
 
 from __future__ import annotations
@@ -13,9 +14,10 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
+from super_gradients_tpu_torch.common.environment import process_group_active
 from super_gradients_tpu_torch.common.registry import register_metric
+from super_gradients_tpu_torch.parallel.collectives import all_gather_per_rank, sum_across_processes
 from super_gradients_tpu_torch.training.metrics.base import Metric
 
 
@@ -270,6 +272,22 @@ def best_score_thresholds(
 
 
 
+def gather_in_batch_order(arrays: Dict[str, np.ndarray], rows: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Every rank's host metric rows in the one-process order: batch by batch, each batch's
+    rank slices in rank order (rank r loads the r-th contiguous slice of every global
+    batch). ``rows`` holds this rank's count of rows in each of its batches. The order
+    matters where equal scores tie in the AP's stable sort."""
+    parts = all_gather_per_rank(arrays)
+    offsets = [np.concatenate([[0], np.cumsum(p["rows"])]) for p in all_gather_per_rank({"rows": np.asarray(rows, np.int64)})]
+    pieces = {k: [a[:0]] for k, a in arrays.items()}
+    for b in range(max(len(o) for o in offsets) - 1):
+        for part, off in zip(parts, offsets):
+            if b + 1 < len(off):
+                for k in arrays:
+                    pieces[k].append(part[k][off[b]:off[b + 1]])
+    return {k: np.concatenate(v) for k, v in pieces.items()}
+
+
 @register_metric("DetectionMetrics")
 class DetectionMetrics(Metric):
     """mAP@[0.5:0.95] + P/R/F1@0.5 (ref DetectionMetrics, detection_metrics.py:28)."""
@@ -314,7 +332,9 @@ class DetectionMetrics(Metric):
         return f"{lo:.2f}" if len(self.iou_thresholds) == 1 else f"{lo:.2f}:{hi:.2f}"
 
     def init(self):
-        return {"tp": [], "conf": [], "cls": [], "keep": [], "n_gt": np.zeros(self.num_cls, dtype=np.int64)}
+        # rows: the detections each update added, which the gather across ranks orders by
+        return {"tp": [], "conf": [], "cls": [], "keep": [], "n_gt": np.zeros(self.num_cls, dtype=np.int64),
+                "rows": []}
 
     def _match(self, pb, pl, gb, gl, crowd_b, crowd_l):
         return match_predictions_to_gt(pb, pl, gb, gl, self.iou_thresholds, crowd_b, crowd_l)
@@ -350,6 +370,7 @@ class DetectionMetrics(Metric):
         nums = np.asarray(nms_out.num_detections)
         targets = np.asarray(targets)
         has_crowd_col = targets.shape[-1] >= 6
+        rows = 0
         for i in range(boxes.shape[0]):
             n = int(nums[i])
             pb, ps, pl = boxes[i, :n], scores[i, :n], labels[i, :n]
@@ -368,17 +389,24 @@ class DetectionMetrics(Metric):
             state["cls"].append(pl)
             state["keep"].append(keep)
             np.add.at(state["n_gt"], gl, 1)
+            rows += len(tp)
+        state["rows"].append(rows)
         return state
 
     def _gather_across_processes(self, state):
-        """Single process only: the state is already global. Under a multi-process
-        ``torch.distributed`` run the per-process states would have to be gathered,
-        which is not ported yet (ROADMAP.md queue 1, 'Deployment and scale-out')."""
-        if self.sync_on_compute and torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("DetectionMetrics: gathering the metric state across processes is not ported yet "
-                                      "(ROADMAP.md queue 1, 'Deployment and scale-out')")
-        return state
+        """Every rank's matches, in the one-process order, and the summed ``n_gt``, so that
+        every rank computes the global metric (JAX ``all_gather_variable_length``)."""
+        if not self.sync_on_compute or not process_group_active():
+            return state
+        t = len(self.iou_thresholds)
+        local = {
+            "tp": np.concatenate(state["tp"]) if state["tp"] else np.zeros((0, t), bool),
+            "keep": np.concatenate(state["keep"]) if state["keep"] else np.ones((0, t), bool),
+            "conf": np.concatenate(state["conf"]).astype(np.float32) if state["conf"] else np.zeros((0,), np.float32),
+            "cls": np.concatenate(state["cls"]).astype(np.int64) if state["cls"] else np.zeros((0,), np.int64),
+        }
+        gathered = gather_in_batch_order(local, state["rows"])
+        return {**{k: [v] for k, v in gathered.items()}, "n_gt": sum_across_processes(state["n_gt"])}
 
     def compute(self, state) -> Dict[str, float]:
         rs = self._range_str

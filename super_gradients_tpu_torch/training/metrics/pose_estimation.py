@@ -5,7 +5,8 @@
 model's device: with ``nms_mode="exact"`` on a CUDA model that is kernel K1, once per
 validation batch. The NMS output then goes to the host, where the greedy OKS matching
 at the thresholds 0.5:0.95 and the AP accumulation (the detection metrics'
-``compute_ap``) run in numpy, line for line as in the JAX package.
+``compute_ap``) run in numpy, line for line as in the JAX package. Under a process group
+``compute`` gathers every rank's matches in the one-process order, as ``DetectionMetrics`` does.
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from super_gradients_tpu_torch.common.environment import process_group_active
 from super_gradients_tpu_torch.common.registry import register_metric
 from super_gradients_tpu_torch.models.class_names import COCO_POSE_SIGMAS
 from super_gradients_tpu_torch.ops.nms import batched_pose_nms
 from super_gradients_tpu_torch.training.metrics.base import Metric
-from super_gradients_tpu_torch.training.metrics.detection import compute_ap
+from super_gradients_tpu_torch.parallel.collectives import sum_across_processes
+from super_gradients_tpu_torch.training.metrics.detection import compute_ap, gather_in_batch_order
 
 
 def oks_matrix(pred_poses: np.ndarray, gt_poses: np.ndarray, gt_areas: np.ndarray, sigmas: np.ndarray) -> np.ndarray:
@@ -59,7 +62,7 @@ class PoseEstimationMetrics(Metric):
         self.nms_mode = nms_mode
 
     def init(self):
-        return {"tp": [], "conf": [], "n_gt": 0}
+        return {"tp": [], "conf": [], "n_gt": 0, "rows": []}
 
     def preprocess_device(self, outputs, targets):
         return batched_pose_nms(
@@ -75,6 +78,7 @@ class PoseEstimationMetrics(Metric):
         nums = np.asarray(nms_out.num_detections)
         targets = np.asarray(targets)
         k = self.num_joints
+        rows = 0
         for i in range(poses.shape[0]):
             n = int(nums[i])
             valid_gt = targets[i, :, 0] >= 0
@@ -103,9 +107,22 @@ class PoseEstimationMetrics(Metric):
                         tp[pi, ti] = True
             state["tp"].append(tp)
             state["conf"].append(scores[i, :n][order])
+            rows += n
+        state["rows"].append(rows)
         return state
 
+    def _gather_across_processes(self, state):
+        """Every rank's matches in the one-process order and the summed ``n_gt``."""
+        if not process_group_active():
+            return state
+        t = len(self.thresholds)
+        local = {"tp": np.concatenate(state["tp"]) if state["tp"] else np.zeros((0, t), bool),
+                 "conf": (np.concatenate(state["conf"]) if state["conf"] else np.zeros((0,))).astype(np.float64)}
+        gathered = gather_in_batch_order(local, state["rows"])
+        return {"tp": [gathered["tp"]], "conf": [gathered["conf"]], "n_gt": sum_across_processes(state["n_gt"])}
+
     def compute(self, state) -> Dict[str, float]:
+        state = self._gather_across_processes(state)
         if not state["tp"] or state["n_gt"] == 0:
             return {"AP": 0.0, "AR": 0.0}
         tp = np.concatenate(state["tp"])

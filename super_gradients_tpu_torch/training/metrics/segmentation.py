@@ -50,6 +50,11 @@ class _ConfusionMatrixMetric(Metric):
         cm = confusion_matrix(self.predictions(_logits(outputs)), targets, self.num_classes, self.ignore_index)
         return cm if state is None else state + cm
 
+    def reduce_across_processes(self, state):
+        if state is None:  # no update on this rank: its matrix is all zeros
+            state = torch.zeros((self.num_classes, self.num_classes), dtype=torch.int64)
+        return super().reduce_across_processes(state)
+
     def _matrix(self, state) -> np.ndarray:
         if state is None:
             return np.zeros((self.num_classes, self.num_classes), dtype=np.float64)

@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from super_gradients_tpu_torch.common.factories import BaseFactory
+from super_gradients_tpu_torch.parallel.collectives import refuse_across_ranks
 
 logger = logging.getLogger(__name__)
 
@@ -61,7 +62,8 @@ class AutoTrainBatchSizeSelectionCallback:
     """Pick the largest batch of ``min_batch_size * 2**k`` (up to ``max_batch_size``) whose
     training step fits ``hbm_budget_gb``, and scale ``initial_lr`` by chosen / recipe batch.
     Without a model and a loss to probe it hands the recipe back unchanged, as the JAX one
-    does when the trainer calls it with the recipe alone."""
+    does when the trainer calls it with the recipe alone. It probes one GPU, so it refuses
+    to run across ranks (the global batch would be the world size times what one rank fits)."""
 
     def __init__(self, min_batch_size: int = 8, size_step: int = 8, max_batch_size: int = 512,
                  hbm_budget_gb: float = 14.0, scale_lr: bool = True):
@@ -75,6 +77,7 @@ class AutoTrainBatchSizeSelectionCallback:
         cfg = copy.deepcopy(cfg)
         if model is None or loss_fn is None:
             return cfg
+        refuse_across_ranks("AutoTrainBatchSizeSelectionCallback's batch-size probe")
         chosen = self.min_batch_size
         bs = self.min_batch_size
         while bs <= self.max_batch_size:

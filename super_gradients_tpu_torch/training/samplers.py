@@ -3,8 +3,9 @@
 Each sampler is a ``torch.utils.data.Sampler`` with ``set_epoch`` and yields, for the
 same dataset size, seed, rank, replica count and epoch, the index sequence of the JAX
 sampler of the same name: every shuffle is ``np.random.RandomState(seed + epoch)``.
-``num_replicas`` / ``rank`` default to one process (a multi-GPU run is ROADMAP.md
-queue 1, 'Deployment and scale-out').
+``num_replicas`` / ``rank`` default to the process group's world size and rank (one
+process without a group), as the JAX samplers default to ``jax.process_count()`` /
+``jax.process_index()``.
 
 Pass one to :class:`~super_gradients_tpu_torch.training.dataloaders.DataLoader` as
 ``sampler=``; the loader hands its ``set_epoch`` on.
@@ -22,7 +23,10 @@ import torch
 
 
 def _process_info(num_replicas: Optional[int], rank: Optional[int]):
-    return int(1 if num_replicas is None else num_replicas), int(0 if rank is None else rank)
+    from super_gradients_tpu_torch.common.environment import get_rank, get_world_size
+
+    num_replicas = get_world_size() if num_replicas is None else num_replicas
+    return int(num_replicas), int(get_rank() if rank is None else rank)
 
 
 class Sampler(torch.utils.data.Sampler):

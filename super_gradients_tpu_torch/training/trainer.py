@@ -26,6 +26,13 @@ From a recipe: ``Trainer.train_from_config(cfg)`` builds the recipe's model (on 
 ``device``, the GPU by default) and loaders and trains; ``evaluate_checkpoint`` and
 ``resume_experiment`` rebuild them from a run's ``recipe.json``.
 
+Data parallelism (as the JAX trainer's mesh): inside a ``torch.distributed`` process
+group (``parallel/mesh.py::setup_device``) the train copy's BatchNorms take their
+statistics over the global batch (``parallel/sync_batch_norm.py``) and it trains wrapped
+in ``DistributedDataParallel``; each rank steps on its slice of every global batch, the
+losses normalize over the global batch, the logged losses and every metric are global,
+and only rank 0 writes checkpoints, ``recipe.json`` and the logs.
+
 Precise BN, QAT and KD are not ported yet: a training parameter that asks for one
 of them raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -43,12 +50,17 @@ import numpy as np
 import torch
 
 from super_gradients_tpu_torch.common.environment import (
+    barrier,
     generate_run_id,
     get_checkpoints_dir_path,
     get_latest_run_id,
+    get_world_size,
     is_primary_process,
+    process_group_active,
 )
 from super_gradients_tpu_torch.common.sg_loggers import get_sg_logger
+from super_gradients_tpu_torch.parallel.collectives import broadcast_from_primary, global_sum, is_distributed
+from super_gradients_tpu_torch.parallel.sync_batch_norm import convert_batch_norm
 from super_gradients_tpu_torch.training import checkpoints as ckpt_utils
 from super_gradients_tpu_torch.training import dataloaders
 from super_gradients_tpu_torch.training.callbacks import Callback, CallbackHandler, PhaseContext, resolve_callback
@@ -176,12 +188,16 @@ def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device
 
 class TrainStep:
     """One micro-step of the train loop, in the four parts ``chip_smoke.py`` times:
-    :meth:`forward`, :meth:`loss`, :meth:`backward` and :meth:`update`."""
+    :meth:`forward`, :meth:`loss`, :meth:`backward` and :meth:`update`. With ``ddp`` (the
+    ``DistributedDataParallel`` wrapper of ``state.net``) the forward runs through it, and
+    the backward all-reduces the gradients on the last micro-step of each accumulation."""
 
     def __init__(self, state: TrainState, criterion: Callable, lr_schedule: Callable[[float], float],
                  batch_accumulate: int = 1, clip_grad_norm: Optional[float] = None,
-                 ema_decay: Optional[Callable[[float], float]] = None, mixed_precision: bool = False):
+                 ema_decay: Optional[Callable[[float], float]] = None, mixed_precision: bool = False,
+                 ddp: Optional[torch.nn.parallel.DistributedDataParallel] = None):
         self.state = state
+        self.ddp = ddp
         self.criterion = criterion
         self.lr_schedule = lr_schedule
         self.batch_accumulate = batch_accumulate
@@ -193,8 +209,13 @@ class TrainStep:
 
     def forward(self, images: torch.Tensor):
         """The network's outputs under the bf16 policy, cast to fp32."""
+        net = self.state.net
+        if self.ddp is not None:
+            # what DDP's no_sync() sets: the micro-steps before an accumulation's last keep their gradients local
+            self.ddp.require_backward_grad_sync = (self.state.step + 1) % self.batch_accumulate == 0
+            net = self.ddp
         with autocast(self.device, self.mixed_precision):
-            out = self.state.net(images)
+            out = net(images)
         return to_f32(out)
 
     def loss(self, outputs, targets: torch.Tensor):
@@ -226,12 +247,16 @@ class TrainStep:
             st.ema.update(self.ema_decay(opt_step))
 
     def run(self, images: torch.Tensor, targets: torch.Tensor):
-        """One micro-step; returns the loss (detached) and the fp32 outputs."""
+        """One micro-step; returns the loss (detached; the global batch's, the mean of the
+        ranks' losses, under a process group) and the fp32 outputs."""
         outputs = self.forward(images)
         loss, _ = self.loss(outputs, targets)
         self.backward(loss)
         self.update()
-        return loss.detach(), outputs
+        loss = loss.detach()
+        if self.ddp is not None:
+            loss = global_sum(loss) / get_world_size()
+        return loss, outputs
 
 
 def _clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
@@ -297,6 +322,8 @@ class Trainer:
         net = copy.deepcopy(model.net).train()
         if model.device.type == "cuda":
             net = net.to(memory_format=torch.channels_last)
+        if is_distributed():
+            convert_batch_norm(net)  # statistics over the global batch (one rank's batch is the global one)
         # frozen parameters get no update and no weight decay: they stay out of the optimizer
         frozen = list(tp.get("frozen_param_patterns") or [])
         trainable = []
@@ -320,8 +347,14 @@ class Trainer:
                 total_steps=max(1, max_epochs * steps_per_epoch // batch_accumulate),
             )
         state = TrainState(net=net, optimizer=optimizer, ema=ModelEMA(net) if ema_decay else None)
+        ddp = None
+        if process_group_active():
+            # the global BN keeps the buffers equal on every rank: nothing to broadcast
+            device_ids = [torch.cuda.current_device() if model.device.index is None else model.device.index] \
+                if model.device.type == "cuda" else None
+            ddp = torch.nn.parallel.DistributedDataParallel(net, device_ids=device_ids, broadcast_buffers=False)
         return TrainStep(state, criterion, lr_schedule, batch_accumulate, tp.get("clip_grad_norm"), ema_decay,
-                         mixed_precision=bool(tp.get("mixed_precision")))
+                         mixed_precision=bool(tp.get("mixed_precision")), ddp=ddp)
 
     @staticmethod
     def _tracked_params(training_params: Optional[Dict]) -> _TrackedParams:
@@ -349,7 +382,8 @@ class Trainer:
             except Exception as e:
                 logger.debug(f"preprocessing-params handoff skipped: {e}")
         if tp.get("cross_replica_bn"):
-            logger.info("cross_replica_bn=True: one device, BN already reduces over the whole batch (no-op)")
+            logger.info("cross_replica_bn=True: BN already reduces over the global batch (no-op): "
+                        + ("the ranks' BNs are global under DDP" if process_group_active() else "one device"))
         tp.get("seed")  # the YOLO-NAS train step draws no random numbers
         max_epochs = int(tp["max_epochs"])
         batch_accumulate = int(tp.get("batch_accumulate") or 1)
@@ -358,15 +392,18 @@ class Trainer:
         state = step.state
         device = model.device
 
-        # ---- resume ----------------------------------------------------
+        # ---- resume (every rank loads; rank 0 names the run) ----------
         start_epoch = 0
+        self.run_id = broadcast_from_primary(self.run_id)
         self.ckpt_dir = get_checkpoints_dir_path(self.experiment_name, self.ckpt_root_dir, self.run_id)
         if tp.get("resume") or tp.get("run_id") or tp.get("resume_path"):
             start_epoch = self._try_resume(tp, state)
+        barrier()  # every rank has read the run before rank 0 writes into it
         primary = is_primary_process()
         if primary:
             os.makedirs(self.ckpt_dir, exist_ok=True)
             self._persist_recipe(tp, model)
+        barrier()
 
         train_metrics = MetricCollection([get_metric(m) for m in (tp.get("train_metrics_list") or [])])
         has_train_metrics = bool(train_metrics.metrics)
@@ -391,7 +428,7 @@ class Trainer:
         metric_to_watch = tp.get("metric_to_watch", "Accuracy")
         best_tracker = ckpt_utils.BestCheckpointTracker(bool(tp.get("greater_metric_to_watch_is_better", True)))
         averager = (ckpt_utils.AverageBestModels(greater_is_better=best_tracker.greater_is_better)
-                    if tp.get("average_best_models") else None)
+                    if tp.get("average_best_models") and primary else None)
         silent = bool(tp.get("silent_mode")) or not primary
 
         # ---- experiment logger -----------------------------------------
@@ -507,10 +544,11 @@ class Trainer:
                         self.sg_logger.add_scalar(f"Test_{tname}/{k}", v, epoch)
                 self.sg_logger.flush()
 
-                # ---------- checkpoints ----------
-                if save_model and primary:
+                # ---------- checkpoints (every rank tracks the best; rank 0 writes) ----------
+                if save_model:
                     self._save_epoch_checkpoints(state, epoch, valid_results, metric_to_watch, best_tracker, averager,
-                                                 ckpt_name, ckpt_best_name, save_ckpt_epoch_list)
+                                                 ckpt_name, ckpt_best_name, save_ckpt_epoch_list, write=primary)
+                    barrier()
         except KeyboardInterrupt:
             logger.info("Ctrl-C: training stops; the checkpoints written so far are kept")
 
@@ -566,6 +604,8 @@ class Trainer:
             logger.warning("eval loop: the data loader yielded 0 batches; metrics are empty")
         results = metrics.compute(mstates)
         if criterion is not None:
+            if process_group_active():  # each rank's loss is its share of the global batch's
+                loss_sum = float(global_sum(torch.as_tensor(loss_sum, dtype=torch.float64))) / get_world_size()
             results["Loss"] = float(loss_sum) / max(count, 1)
         return results
 
@@ -588,17 +628,20 @@ class Trainer:
 
     def _save_epoch_checkpoints(self, state: TrainState, epoch: int, valid_results: Dict[str, float], metric_to_watch,
                                 best_tracker, averager, ckpt_name="ckpt_latest", ckpt_best_name="ckpt_best",
-                                save_ckpt_epoch_list=()):
-        payload = ckpt_utils.serialize({
-            **state.state_dict(),
-            "epoch": epoch,
-            "metrics": {k: float(v) for k, v in valid_results.items()},
-            "experiment": self.experiment_name,
-            "ckpt_version": ckpt_utils.CKPT_VERSION,
-        })
-        ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_name, payload)
-        if epoch in (save_ckpt_epoch_list or ()):
-            ckpt_utils.save_checkpoint(self.ckpt_dir, f"ckpt_epoch_{epoch}", payload)
+                                save_ckpt_epoch_list=(), write: bool = True):
+        """Track the best ``metric_to_watch``; with ``write``, write the epoch's checkpoints."""
+        payload = None
+        if write:
+            payload = ckpt_utils.serialize({
+                **state.state_dict(),
+                "epoch": epoch,
+                "metrics": {k: float(v) for k, v in valid_results.items()},
+                "experiment": self.experiment_name,
+                "ckpt_version": ckpt_utils.CKPT_VERSION,
+            })
+            ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_name, payload)
+            if epoch in (save_ckpt_epoch_list or ()):
+                ckpt_utils.save_checkpoint(self.ckpt_dir, f"ckpt_epoch_{epoch}", payload)
 
         watched = valid_results.get(metric_to_watch)
         if watched is not None:
@@ -607,8 +650,9 @@ class Trainer:
                 averager.update(watched, {name: weights[name] for name, _ in state.net.named_parameters()})
             if best_tracker.is_improvement(watched):
                 self.best_metric = watched
-                ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_best_name, payload)
-                logger.info(f"New best {metric_to_watch}={watched:.4f} -> {ckpt_best_name}")
+                if write:
+                    ckpt_utils.save_checkpoint(self.ckpt_dir, ckpt_best_name, payload)
+                    logger.info(f"New best {metric_to_watch}={watched:.4f} -> {ckpt_best_name}")
         if averager is not None and averager.snapshots:
             # the averaged parameters with the LIVE BN statistics, as the JAX trainer pairs them
             net = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}

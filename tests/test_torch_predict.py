@@ -291,6 +291,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.models.classification import mobilenet
         from super_gradients_tpu_torch.models.detection import ssd
         from super_gradients_tpu_torch.training.losses import ssd_loss
+        from super_gradients_tpu_torch.parallel import collectives, mesh, sync_batch_norm
+        from super_gradients_tpu_torch import setup_device
+        assert setup_device is mesh.setup_device
         assert processing.cv2_module() is None
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         for name, module in model.net.named_modules():

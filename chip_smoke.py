@@ -186,7 +186,17 @@ result) without CUDA or without the port's sources next to it. Phases:
    of ``ckpt_best.pth`` under the same policy, K1 twice on each rank, nothing written by rank
    1; (d) with two or more GPUs, the bf16 step at global b32 over NCCL timed by part on each
    rank (with one GPU it says so and runs nothing). The ranks' K1 launches join the kernels
-   line.
+   line;
+19. the Cityscapes segmentation zoo at 1024x2048, 19 classes, seed 0, launching no kernel (K1
+   must count 0 here): (a) fp32 ``predict()`` (TF32 off) of two seeded 1024x2048 images by
+   DDRNet-23, RegSeg48 and SegFormer-B0 at their 1024x2048 input on the card and on the CPU,
+   class maps agreeing on >= ``SEG_AGREEMENT`` of the pixels, the card's logits of one image
+   within twice the CPU's distance to an fp64 CPU run, and the fp32 forward at b2 timed; (b)
+   the bf16 train step of DDRNet-23 with its aux head and ``OhemCELoss`` (the recipe's
+   criterion) at b8 on 1024x1024 crops by part, its idle share and peak memory; (c)
+   ``train_from_recipe`` of ``cityscapes_ddrnet`` and ``cityscapes_regseg48`` (their loaders,
+   b8, bf16, one epoch of two steps, validated) on a Cityscapes-layout tree of 16 + 4 1024x2048
+   PNGs written by phase 15(d)'s writer: losses and metrics finite, every parameter changed.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -2334,23 +2344,27 @@ def phase_segmentation_predict(torch, np, name):
     torch.cuda.empty_cache()
 
 
-def phase_segmentation_step(torch, np, name, loss_name, b):
-    """(c) The bf16 train step at 512x1024 by part (the Cityscapes recipes' SGD, momentum 0.9,
+def phase_segmentation_step(torch, np, name, loss, b, hw=(512, 1024), arch_params=None,
+                            criterion_params=None, tag="15c"):
+    """(c) The bf16 train step at ``hw`` by part (the Cityscapes recipes' SGD, momentum 0.9,
     weight decay 5e-4 off bias and BN, exp EMA), with its idle share and peak memory; and the
-    OHEM sort of one head's b x 512 x 1024 pixel losses alone."""
+    OHEM sort of one head's b x H x W pixel losses alone."""
     from super_gradients_tpu_torch import models
     from super_gradients_tpu_torch.training import Trainer
 
-    model = models.get(name, seed=0, device="cuda")
-    tp = dict(loss=loss_name, criterion_params={"num_classes": 19, "ignore_index": 255}, optimizer="SGD",
+    loss_name = loss
+    h, w = hw
+    model = models.get(name, seed=0, arch_params=arch_params, device="cuda")
+    criterion_params = criterion_params or {"num_classes": 19, "ignore_index": 255}
+    tp = dict(loss=loss_name, criterion_params=criterion_params, optimizer="SGD",
               optimizer_params={"momentum": 0.9, "weight_decay": 5e-4}, zero_weight_decay_on_bias_and_bn=True,
               initial_lr=0.01, lr_mode="PolyLRScheduler", max_epochs=2, ema=True,
               ema_params={"decay": 0.9999, "beta": 15, "decay_type": "exp"}, mixed_precision=True)
     step = Trainer("chip_smoke_seg_timing").prepare(model, tp, steps_per_epoch=100)
     gen = torch.Generator().manual_seed(b)
-    images = torch.rand((b, 3, 512, 1024), generator=gen).cuda().contiguous(memory_format=torch.channels_last)
-    targets = torch.randint(0, 19, (b, 512, 1024), generator=gen, dtype=torch.int32)
-    targets[torch.rand((b, 512, 1024), generator=gen) < 0.1] = 255
+    images = torch.rand((b, 3, h, w), generator=gen).cuda().contiguous(memory_format=torch.channels_last)
+    targets = torch.randint(0, 19, (b, h, w), generator=gen, dtype=torch.int32)
+    targets[torch.rand((b, h, w), generator=gen) < 0.1] = 255
     targets = targets.cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2383,13 +2397,14 @@ def phase_segmentation_step(torch, np, name, loss_name, b):
     torch.cuda.synchronize()
     check(bool(torch.isfinite(loss)), f"{name} b{b} bf16 train loss not finite")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    pixel_losses = torch.rand(b * 512 * 1024, generator=gen).cuda()
+    pixel_losses = torch.rand(b * h * w, generator=gen).cuda()
     sort_ms = cuda_ms(lambda: torch.sort(pixel_losses, descending=True), iters=10)
-    print(f"[15c] {name} + {loss_name} bf16 train step b{b} at 512x1024: {step_ms:.2f} ms/step, "
+    print(f"[{tag}] {name}{' with ' + json.dumps(arch_params) if arch_params else ''} + {loss_name} bf16 train step "
+          f"b{b} at {h}x{w}: {step_ms:.2f} ms/step, "
           f"{b * 1e3 / step_ms:.1f} img/s (CUDA events); forward {parts[0]:.2f}, loss {parts[1]:.2f}, backward "
           f"{parts[2]:.2f}, optimizer + EMA {parts[3]:.2f} ms; profiled (device activity only): wall {wall_ms:.2f} "
           f"ms/step, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak memory {peak:.2f} GiB; "
-          f"OHEM's descending sort of {b * 512 * 1024} pixel losses alone {sort_ms:.3f} ms (one per OHEM head)")
+          f"OHEM's descending sort of {b * h * w} pixel losses alone {sort_ms:.3f} ms (one per OHEM head)")
     del step, images, targets, loss, prof_events, model, pixel_losses
     torch.cuda.empty_cache()
 
@@ -3980,6 +3995,123 @@ def ddp_rank_main(args):
     return 0
 
 
+# --------------------------------------------------- phase 19: DDRNet, RegSeg48 and SegFormer
+
+SEG_ZOO_MODELS = ("ddrnet_23", "regseg48", "segformer_b0")
+SEG_ZOO_HW = (1024, 2048)  # Cityscapes' full size
+SEG_ZOO_FP64_IMAGES = 1  # images of 19(a)'s fp64 CPU logits (SegFormer-B0's first attention: 131,072 x 2,048 an image)
+SEG_ZOO_RECIPES = ("cityscapes_ddrnet", "cityscapes_regseg48")
+SEG_ZOO_STEP = dict(b=8, hw=(1024, 1024), arch_params={"use_aux_heads": True}, loss="OhemCELoss",
+                    criterion_params={"threshold": 0.7, "mining_percent": 0.0625, "ignore_lb": 255})
+
+
+def phase_seg_zoo(torch, np, nms_exact, root):
+    """The Cityscapes segmentation zoo at 1024x2048, 19 classes, launching no kernel (K1 must
+    count 0 here): (a) fp32 predict GPU vs CPU for DDRNet-23, RegSeg48 and SegFormer-B0, (b) the
+    bf16 train step of DDRNet-23 with its aux head and OhemCELoss at b8 on 1024x1024 crops by part,
+    (c) train_from_recipe of cityscapes_ddrnet and cityscapes_regseg48 for a few steps on a
+    Cityscapes-layout tree written here."""
+    launches_before = nms_exact.exact_nms_keep.launches
+    t_phase = time.perf_counter()
+    for name in SEG_ZOO_MODELS:
+        phase_seg_zoo_predict(torch, np, name)
+        print(f"[19a] {name} seconds {time.perf_counter() - t_phase:.1f}")
+    phase_segmentation_step(torch, np, "ddrnet_23", tag="19b", **SEG_ZOO_STEP)
+    print(f"[19b] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_seg_zoo_recipes(torch, np, root)
+    launched = nms_exact.exact_nms_keep.launches - launches_before
+    check(launched == 0, f"phase 19 launched K1 {launched} times; segmentation has no NMS")
+    print(f"[19] phase seconds {time.perf_counter() - t_phase:.1f}; K1 launches in phase 19: {launched}")
+
+
+def phase_seg_zoo_predict(torch, np, name):
+    """(a) fp32 predict (TF32 off) of two 1024x2048 images at the model's 1024x2048 on the card
+    and on the CPU: class maps agree on >= SEG_AGREEMENT of the pixels; the card's logits of the
+    first SEG_ZOO_FP64_IMAGES images within twice the CPU's distance to an fp64 CPU run; and the
+    fp32 forward at b2 timed."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models.sg_model import SegmentationModel
+
+    model = models.get(name, seed=0, input_hw=SEG_ZOO_HW, device="cuda")
+    cpu_model = models.get(name, seed=0, input_hw=SEG_ZOO_HW, device="cpu")
+    check(isinstance(model, SegmentationModel) and model.num_classes == 19, f"{name} is not a 19-class segmenter")
+    images = seg_request(np, 33)[:2]
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gpu = list(model.predict(images, batch_size=2))
+        _, batches, _ = model._prep_host_batches(images[:SEG_ZOO_FP64_IMAGES], SEG_ZOO_FP64_IMAGES)
+        x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2).contiguous()
+        net = model._deploy_net(False, False)
+        with torch.inference_mode():
+            g_logits = net(x.cuda()).double().cpu()
+            batch = torch.from_numpy(model._prep_host_batches(images, 2)[1][0]).permute(0, 3, 1, 2).cuda()
+            forward_ms = cuda_ms(lambda: net(batch), iters=5)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    cpu = list(cpu_model.predict(images, batch_size=2))
+    with torch.inference_mode():
+        c_logits = cpu_model.net(x).double()
+        r_logits = copy.deepcopy(cpu_model.net).double()(x.double())
+    agree = [float((g.segmentation_map == c.segmentation_map).mean()) for g, c in zip(gpu, cpu)]
+    e_gpu, e_cpu = float((g_logits - r_logits).abs().max()), float((c_logits - r_logits).abs().max())
+    top2 = r_logits.topk(2, dim=1).values
+    print(f"[19a] {name} 19 classes at 1024x2048, fp32 predict GPU vs CPU (TF32 off), two 1024x2048 images: maps "
+          f"{gpu[0].segmentation_map.shape} {gpu[0].segmentation_map.dtype}, pixels agreeing "
+          f"{[round(a, 6) for a in agree]} (limit {SEG_AGREEMENT}); classes used "
+          f"{len(np.unique(gpu[0].segmentation_map))}; logits of {SEG_ZOO_FP64_IMAGES} image(s) |GPU - fp64| max "
+          f"{e_gpu:.3e}, |CPU - fp64| max {e_cpu:.3e} (|logit| max {float(r_logits.abs().max()):.2f}, top-2 gap median "
+          f"{float((top2[:, 0] - top2[:, 1]).median()):.3f}); fp32 forward b2 on the card {forward_ms:.2f} ms "
+          f"(CUDA events, TF32 off)")
+    check(len(gpu) == 2 and all(g.segmentation_map.shape == SEG_ZOO_HW for g in gpu), f"{name} maps' shape")
+    check(min(agree) >= SEG_AGREEMENT, f"{name}: GPU and CPU maps agree on {agree} of the pixels")
+    check(e_gpu <= 2 * e_cpu + 1e-6 * float(r_logits.abs().max()), f"{name}: GPU logits {e_gpu} vs CPU {e_cpu} from fp64")
+    del model, cpu_model, net, batch, g_logits, c_logits, r_logits
+    torch.cuda.empty_cache()
+
+
+def phase_seg_zoo_recipes(torch, np, root):
+    """(c) train_from_recipe of cityscapes_ddrnet (DDRNet-23, OhemCELoss) and cityscapes_regseg48
+    (RegSeg48, SegCrossEntropyLoss) with their own loaders (1024x1024 train crops, 1024x2048
+    validation), b8, bf16, one epoch of two steps, on a Cityscapes-layout tree of 16 train and 4
+    val 1024x2048 PNGs written here by phase 15(d)'s writer: losses and metrics finite, every
+    parameter changed."""
+    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch.common import config
+    from tools.cityscapes_synthetic import write_cityscapes_tree
+
+    data_root, ckpt_root = os.path.join(root, "cityscapes"), os.path.join(root, "ckpt")
+    t0 = time.perf_counter()
+    write_cityscapes_tree(data_root, train=16, val=4, height=1024, width=2048, seed=1)
+    print(f"[19c] Cityscapes-layout tree (16 train + 4 val 1024x2048 PNGs) written in {time.perf_counter() - t0:.1f} s")
+    workers = min(8, os.cpu_count())
+    for recipe in SEG_ZOO_RECIPES:
+        cuts = ["epochs=1", f"num_workers={workers}", f"ckpt_root_dir={ckpt_root}", "training_hyperparams.mixed_precision=True",
+                f"dataset_params.train_dataset_params.root={data_root}",
+                f"dataset_params.val_dataset_params.root={data_root}",
+                "training_hyperparams.sg_logger_params.tensorboard=False"]
+        cfg = config.load_recipe(recipe, overrides=cuts)
+        initial = {k: v.detach().clone() for k, v in models.get(cfg["architecture"], num_classes=19).net.named_parameters()}
+        t0 = time.perf_counter()
+        _, trainer = train_from_recipe.main([f"--config-name={recipe}", *cuts])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        live = dict(trainer.train_state.net.named_parameters())
+        unchanged = [k for k, v in initial.items() if torch.equal(v, live[k])]
+        history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+        print(f"[19c] train_from_recipe {recipe} ({cfg['architecture']}, {cfg['training_hyperparams']['loss']}, "
+              f"{cfg['train_dataloader']}, bf16, {workers} workers, cuts {cuts[:2]}): {trainer.train_state.step} steps "
+              f"in {seconds:.1f} s; losses {history}; validation {json.dumps(valid)}; parameters unchanged "
+              f"{len(unchanged)} of {len(initial)}")
+        check(trainer.train_state.step == 2 and len(history) == 1 and all(np.isfinite(history)),
+              f"{recipe}: {trainer.train_state.step} steps, losses {history}")
+        check(len(valid) == 1 and "IoU" in valid[0] and np.isfinite(list(valid[0].values())).all(),
+              f"{recipe} validation results {valid}")
+        check(not unchanged, f"{recipe}: parameters the training left unchanged: {unchanged[:5]}")
+        del trainer, initial, live
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -4035,8 +4167,10 @@ def main():
     max_err = max(max_err, ssd_err)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as root:
         ddp_launches = phase_ddp(torch, np, root, one_process_ms)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_zoo_") as root:
+        phase_seg_zoo(torch, np, nms_exact, root)
 
-    print(f"chip_smoke: phases 1-18 passed in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-19 passed in {time.perf_counter() - t_script:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")

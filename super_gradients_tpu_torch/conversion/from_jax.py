@@ -1,12 +1,13 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
 ``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
-YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC and PP-LiteSeg
-segmentation models, MobileNet V1 / V2 / V3 and SSD).
+YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC, PP-LiteSeg, DDRNet, RegSeg,
+UNet and SegFormer segmentation models, MobileNet V1 / V2 / V3 and SSD).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
 of those rules (``YOLO_NAS_RULES``, ``PPYOLOE_RULES``, ``YOLOX_RULES``, ``YOLO_NAS_POSE_RULES``,
-``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
+``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``DDRNET_RULES``,
+``REGSEG_RULES``, ``unet_rules``, ``SEGFORMER_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
 ``SSD_V1_RULES``, ``SSD_LITE_V2_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout
 transforms:
 
@@ -29,6 +30,8 @@ from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from super_gradients_tpu_torch.models.segmentation.regseg import dblock_names
 
 Rules = Sequence[Tuple[str, str]]
 
@@ -170,6 +173,122 @@ PPLITESEG_RULES: Rules = _stdc_backbone_rules("encoder.") + (
     (r"^seg_head\.pred$", "seg_head.0.seg_head.2"),
     (r"^aux_head_(\d+)\.conv\.(conv|bn)$", r"aux_heads.\1.0.seg_head.0.seq.\2"),
     (r"^aux_head_(\d+)\.pred$", r"aux_heads.\1.0.seg_head.2"),
+)
+
+
+def _ddrnet_dappm_down_scale(m) -> str:
+    """A DAPPM branch's ``down_scale`` index: branch 0 (stride 1) has no pooling layer, so its
+    BN and conv sit at 0 / 2, every other branch's at 1 / 3."""
+    b = int(m.group(1))
+    bn_i, conv_i = (0, 2) if b == 0 else (1, 3)
+    return f"spp.branches.{b}.down_scale.{bn_i if m.group(2) == 'bn' else conv_i}"
+
+
+# DDRNet (copy of the JAX package's DDRNET_RULES): the trunk under `_backbone`, every ConvBN a
+# Sequential(conv, bn), the DAPPM's Sequentials under `spp`, the blocks' shortcuts Sequentials
+DDRNET_RULES: Rules = (
+    (r"^stem_(\d)\.conv$", r"_backbone.stem.\1.0"),
+    (r"^stem_(\d)\.bn$", r"_backbone.stem.\1.1"),
+    (r"^layer3_(\d+)", r"_backbone.layer3.\1"),
+    (r"^layer([124])_(\d+)", r"_backbone.layer\1.\2"),
+    (r"^down3_(\d+)\.conv$", r"down3.\1.0"),
+    (r"^down3_(\d+)\.bn$", r"down3.\1.1"),
+    (r"^compression3_(\d+)\.conv$", r"compression3.\1.0"),
+    (r"^compression3_(\d+)\.bn$", r"compression3.\1.1"),
+    (r"^compression4\.conv$", "compression4.0"),
+    (r"^compression4\.bn$", "compression4.1"),
+    (r"^down4_(\d)\.conv$", r"down4.\1.0"),
+    (r"^down4_(\d)\.bn$", r"down4.\1.1"),
+    (r"^spp\.branch_(\d)\.(bn|conv)$", _ddrnet_dappm_down_scale),
+    (r"^spp\.branch_(\d)\.process_bn$", r"spp.branches.\1.process.0"),
+    (r"^spp\.branch_(\d)\.process_conv$", r"spp.branches.\1.process.2"),
+    (r"^spp\.compression_bn$", "spp.compression.0"),
+    (r"^spp\.compression_conv$", "spp.compression.2"),
+    (r"^spp\.shortcut_bn$", "spp.shortcut.0"),
+    (r"^spp\.shortcut_conv$", "spp.shortcut.2"),
+    (r"shortcut_conv", "shortcut.0"),
+    (r"shortcut_bn", "shortcut.1"),
+)
+
+
+def _regseg_block_prefix(m) -> str:
+    return "backbone.stages.{}.{}".format(m.group(1), dblock_names()[(int(m.group(1)), int(m.group(2)))])
+
+
+# RegSeg48 (copy of the JAX package's REGSEG_RULES): the blocks' names spell out their geometry,
+# their layers are `d_block_path` Sequential indices
+REGSEG_RULES: Rules = (
+    (r"^stage(\d+)_(\d+)", _regseg_block_prefix),
+    (r"\.conv1\.(conv|bn)$", r".d_block_path.0.seq.\1"),
+    (r"\.dconv$", ".d_block_path.1"),
+    (r"\.dconv_(\d+)$", r".d_block_path.1.convs.\1"),
+    (r"\.bn2$", ".d_block_path.2"),
+    (r"\.se_fc1$", ".d_block_path.4.se_block.1"),
+    (r"\.se_fc2$", ".d_block_path.4.se_block.3"),
+    (r"\.conv3\.(conv|bn)$", r".d_block_path.5.seq.\1"),
+    (r"\.shortcut\.(conv|bn)$", r".shortcut.shortcut.1.seq.\1"),
+    (r"^stem\.(conv|bn)$", r"stem.seq.\1"),
+    (r"^proj(\d)\.(conv|bn)$", r"decoder.projections.\1.seq.\2"),
+    (r"^decoder_conv\.(conv|bn)$", r"decoder.conv_bn_relu.seq.\1"),
+    (r"^head_conv\.(conv|bn)$", r"head.head.0.seq.\1"),
+    (r"^head_pred$", "head.head.1"),
+)
+
+
+def unet_rules(strides_list: Sequence[int]) -> Rules:
+    """UNet (copy of the JAX package's ``unet_key_mapper``): a stride-2 stage's max pool shifts
+    its blocks' indices by one; a decoder stage's repeats after the first nest under
+    ``last_convs.1``."""
+    strides = list(strides_list)
+
+    def stage(m):
+        i, j, leaf = int(m.group(1)), int(m.group(2)), m.group(3)
+        return f"encoder.backbone.stages.{i}.blocks.{j + (1 if strides[i] == 2 else 0)}.seq.{leaf}"
+
+    def dec(m):
+        i, r, leaf = m.group(1), int(m.group(2)), m.group(3)
+        return f"decoder.up_stages.{i}.last_convs.{'0' if r == 0 else f'1.{r - 1}'}.seq.{leaf}"
+
+    return (
+        (r"^stage(\d+)_blk(\d+)\.(conv|bn)$", stage),
+        (r"^dec(\d+)_conv(\d+)\.(conv|bn)$", dec),
+        (r"^proj(\d+)\.(conv|bn)$", r"decoder.projection_blocks.\1.seq.\2"),
+        (r"^head_conv\.(conv|bn)$", r"seg_head.0.seg_head.0.seq.\1"),
+        (r"^head_pred$", "seg_head.0.seg_head.2"),
+    )
+
+
+def unet_classifier_rules(strides_list: Sequence[int]) -> Rules:
+    """The UNet classifier (no JAX mapper): ``enc{i}_{1,2}`` onto the encoder's layout under
+    ``backbone.stages``, ``fc`` as it is."""
+    strides = list(strides_list)
+    return ((r"^enc(\d+)_(\d)\.(conv|bn)$",
+             lambda m: "backbone.stages.{}.blocks.{}.seq.{}".format(
+                 m.group(1), int(m.group(2)) - (0 if strides[int(m.group(1))] == 2 else 1), m.group(3))),)
+
+
+def _segformer_stage(fmt: str):
+    def repl(m):
+        return fmt.format(s=int(m.group(1)) + 1, b=int(m.group(2)) if m.lastindex > 1 else 0)
+
+    return repl
+
+
+# SegFormer (copy of the JAX package's SEGFORMER_RULES): the MiT stages 1-based under
+# `_backbone`, the head under `decode_head`
+SEGFORMER_RULES: Rules = (
+    (r"^patch_embed(\d)$", _segformer_stage("_backbone.patch_embed{s}.proj")),
+    (r"^embed_norm(\d)$", _segformer_stage("_backbone.patch_embed{s}.norm")),
+    (r"^attn(\d)_(\d+)\.sr_norm$", _segformer_stage("_backbone.block{s}.{b}.attn.norm")),
+    (r"^attn(\d)_(\d+)", _segformer_stage("_backbone.block{s}.{b}.attn")),
+    (r"^norm1_(\d)_(\d+)$", _segformer_stage("_backbone.block{s}.{b}.norm1")),
+    (r"^norm2_(\d)_(\d+)$", _segformer_stage("_backbone.block{s}.{b}.norm2")),
+    (r"^ffn(\d)_(\d+)", _segformer_stage("_backbone.block{s}.{b}.mlp")),
+    (r"^out_norm(\d)$", _segformer_stage("_backbone.norm{s}")),
+    (r"^linear_c(\d)$", _segformer_stage("decode_head.linear_c{s}.proj")),
+    (r"^linear_fuse\.conv$", "decode_head.linear_fuse.seq.conv"),
+    (r"^linear_fuse\.bn$", "decode_head.linear_fuse.seq.bn"),
+    (r"^linear_pred$", "decode_head.linear_pred"),
 )
 
 

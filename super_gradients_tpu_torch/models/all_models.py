@@ -1,6 +1,6 @@
 """Architecture registrations of the port (the ResNet, STDC classification, MobileNet,
-YOLO-NAS, PP-YOLOE, YOLOX, SSD, YOLO-NAS-POSE, STDC segmentation and PP-LiteSeg rows of
-``super_gradients_tpu/models/all_models.py``)."""
+YOLO-NAS, PP-YOLOE, YOLOX, SSD, YOLO-NAS-POSE, STDC segmentation, PP-LiteSeg, DDRNet,
+RegSeg, UNet and SegFormer rows of ``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
 
@@ -45,13 +45,33 @@ from super_gradients_tpu_torch.models.pose.yolo_nas_pose import (
     yolo_nas_pose_n_config,
     yolo_nas_pose_s_config,
 )
+from super_gradients_tpu_torch.models.segmentation.ddrnet import (
+    DDRNET_23_CFG,
+    DDRNET_23_SLIM_CFG,
+    DDRNET_39_CFG,
+    DDRNet,
+    DDRNetCfg,
+)
 from super_gradients_tpu_torch.models.segmentation.ppliteseg import PP_LITE_B_CFG, PP_LITE_T_CFG, PPLiteSeg
+from super_gradients_tpu_torch.models.segmentation.regseg import RegSeg, RegSegCfg
 from super_gradients_tpu_torch.models.segmentation.stdc import (
     STDC1_CFG,
     STDC2_CFG,
     STDCClassification,
     STDCSegCfg,
     STDCSegmentation,
+)
+from super_gradients_tpu_torch.models.segmentation.unet_segformer import (
+    SEGFORMER_B0,
+    SEGFORMER_B1,
+    SEGFORMER_B2,
+    SEGFORMER_B3,
+    SEGFORMER_B4,
+    SEGFORMER_B5,
+    SegFormer,
+    UNet,
+    UNetCfg,
+    UNetClassifier,
 )
 from super_gradients_tpu_torch.models.sg_model import ClassificationModel, PoseEstimationModel, SegmentationModel
 
@@ -477,3 +497,99 @@ def pp_lite_t_seg(**kw):
 @register_model("pp_lite_b_seg75")
 def pp_lite_b_seg(**kw):
     return _ppliteseg(PP_LITE_B_CFG, **kw)
+
+
+def _ddrnet(base, num_classes=None, arch_params=None, input_hw=(512, 1024), **kw) -> ModelSpec:
+    """DDRNet; ``arch_params`` gives ``num_classes`` (19) and ``use_aux_heads`` (False)."""
+    arch_params = arch_params or {}
+    nc = num_classes or arch_params.get("num_classes", 19)
+    cfg = dataclasses.replace(base, num_classes=nc, use_aux_heads=arch_params.get("use_aux_heads", False))
+    return _seg_spec(DDRNet(cfg), nc, input_hw, cfg)
+
+
+@register_model("ddrnet_23")
+def ddrnet_23(**kw):
+    return _ddrnet(DDRNET_23_CFG, **kw)
+
+
+@register_model("ddrnet_23_slim")
+def ddrnet_23_slim(**kw):
+    return _ddrnet(DDRNET_23_SLIM_CFG, **kw)
+
+
+@register_model("ddrnet_39")
+def ddrnet_39(**kw):
+    return _ddrnet(DDRNET_39_CFG, **kw)
+
+
+@register_model("custom_ddrnet_23")
+def custom_ddrnet_23(num_classes=None, arch_params=None, input_hw=(512, 1024), **kw):
+    """DDRNet-23's depths at the ``arch_params`` widths ``planes`` (64), ``highres_planes`` (128)
+    and ``head_planes`` (128)."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 19)
+    cfg = DDRNetCfg(num_classes=nc, planes=ap.get("planes", 64), highres_planes=ap.get("highres_planes", 128),
+                    head_planes=ap.get("head_planes", 128), use_aux_heads=ap.get("use_aux_heads", False))
+    return _seg_spec(DDRNet(cfg), nc, input_hw, cfg)
+
+
+@register_model("regseg48")
+def regseg48(num_classes=None, arch_params=None, input_hw=(512, 1024), **kw):
+    """RegSeg48 (it reads no ``arch_params``, as in the JAX zoo)."""
+    nc = num_classes or 19
+    cfg = RegSegCfg(num_classes=nc)
+    return _seg_spec(RegSeg(cfg), nc, input_hw, cfg)
+
+
+@register_model("unet")
+def unet(num_classes=None, arch_params=None, input_hw=(512, 512), **kw):
+    """The classic UNet at 512x512 (it reads no ``arch_params``, as in the JAX zoo)."""
+    nc = num_classes or 19
+    cfg = UNetCfg(num_classes=nc)
+    return _seg_spec(UNet(cfg), nc, input_hw, cfg)
+
+
+@register_model("unet_custom")
+def unet_custom(num_classes=None, arch_params=None, input_hw=(512, 512), **kw):
+    """A UNet of the ``arch_params`` ``backbone_params`` / ``decoder_params`` (the recipes'
+    ``unet_arch_params`` layout), ``final_upsample_factor``, ``head_hidden_channels`` and
+    ``dropout``."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 19)
+    bp, dp = ap.get("backbone_params", {}), ap.get("decoder_params", {})
+    cfg = UNetCfg(
+        num_classes=nc,
+        strides_list=tuple(bp.get("strides_list", (1, 2, 2, 2, 2))),
+        width_list=tuple(bp.get("width_list", ap.get("widths", (64, 128, 256, 512, 512)))),
+        num_blocks_list=tuple(bp.get("num_blocks_list", (2, 2, 2, 2, 2))),
+        decoder_scale=dp.get("decoder_scale", 0.5),
+        skip_expansion=dp.get("skip_expansion", 1.0),
+        up_block_repeat_list=tuple(dp.get("up_block_repeat_list", (2, 2, 2, 1))),
+        min_decoder_channels=dp.get("min_decoder_channels", 1),
+        final_upsample_factor=ap.get("final_upsample_factor", 1),
+        head_hidden_channels=ap.get("head_hidden_channels") or 0,
+        dropout=ap.get("dropout", 0.0),
+    )
+    return _seg_spec(UNet(cfg), nc, input_hw, cfg)
+
+
+@register_model("unet_custom_cls")
+def unet_custom_cls(num_classes=None, arch_params=None, **kw):
+    """The UNet encoder of the ``arch_params`` ``widths`` (64-1024) as a 224x224 classifier."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    cfg = UNetCfg(num_classes=nc, width_list=tuple(ap.get("widths", (64, 128, 256, 512, 1024))),
+                  strides_list=(1, 2, 2, 2, 2))
+    return _cls_spec(UNetClassifier(cfg, num_classes=nc), nc)
+
+
+def _segformer(base, num_classes=None, arch_params=None, input_hw=(512, 1024), **kw) -> ModelSpec:
+    """SegFormer (it reads no ``arch_params``, as in the JAX zoo)."""
+    nc = num_classes or 19
+    cfg = dataclasses.replace(base, num_classes=nc)
+    return _seg_spec(SegFormer(cfg), nc, input_hw, cfg)
+
+
+for _name, _base in (("segformer_b0", SEGFORMER_B0), ("segformer_b1", SEGFORMER_B1), ("segformer_b2", SEGFORMER_B2),
+                     ("segformer_b3", SEGFORMER_B3), ("segformer_b4", SEGFORMER_B4), ("segformer_b5", SEGFORMER_B5)):
+    register_model(_name)(lambda _base=_base, **kw: _segformer(_base, **kw))

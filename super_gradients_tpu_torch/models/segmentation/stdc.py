@@ -41,6 +41,12 @@ def upsample(x: torch.Tensor, scale: int, method: str = "nearest") -> torch.Tens
     return F.interpolate(x, size=size, mode="bilinear", align_corners=method == "bilinear_ac")
 
 
+def resize_to(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``jax.image.resize(bilinear)`` of an upsampling to ``(h, w)``: the half-pixel grid, no
+    antialias (``jax.image.resize`` antialiases only when it shrinks)."""
+    return F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False)
+
+
 class Upsample(nn.Module):
     def __init__(self, scale: int, method: str):
         super().__init__()
@@ -145,8 +151,8 @@ class STDCBackbone(nn.Module):
 
 @torch.no_grad()
 def reset_segmentation_parameters(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init: He-normal conv weights, LeCun-normal ``Linear`` weights, unit BN
-    affine and (0, 1) running stats."""
+    """Seeded random init: He-normal conv weights, LeCun-normal ``Linear`` weights, zero biases
+    (flax's default), unit BN and LayerNorm affine and (0, 1) running stats."""
     for module in net.modules():
         if isinstance(module, nn.Conv2d):
             fan_in = module.weight[0].numel()
@@ -154,8 +160,10 @@ def reset_segmentation_parameters(net: nn.Module, generator: torch.Generator) ->
         elif isinstance(module, nn.Linear):
             fan_in = module.weight.shape[1]
             module.weight.copy_(torch.randn(module.weight.shape, generator=generator) * math.sqrt(1.0 / fan_in))
-        elif isinstance(module, nn.BatchNorm2d):
+        elif isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)):
             module.reset_parameters()
+        if isinstance(module, (nn.Conv2d, nn.Linear)) and module.bias is not None:
+            module.bias.zero_()
     return net
 
 

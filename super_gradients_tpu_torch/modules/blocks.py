@@ -75,10 +75,10 @@ class ConvBNReLU(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int, bn_eps: float = 1e-5, bn_momentum: float = 0.1,
                  stride: int = 1, groups: int = 1, use_normalization: bool = True, use_activation: bool = True,
-                 act="relu"):
+                 act="relu", bias: bool = False):
         super().__init__()
         layers = OrderedDict(conv=nn.Conv2d(in_channels, out_channels, kernel, stride, kernel // 2, groups=groups,
-                                            bias=False))
+                                            bias=bias))
         if use_normalization:
             layers["bn"] = _bn(out_channels, bn_eps, bn_momentum)
         if use_activation:

@@ -34,9 +34,9 @@ from super_gradients_tpu_torch.inference import processing as port_processing
 from super_gradients_tpu_torch.inference.prediction_results import ClassificationPrediction
 from super_gradients_tpu_torch.models.classification.resnet import ResNet
 from super_gradients_tpu_torch.models.sg_model import ClassificationModel
+from torch_jax_init import FP64_COMPILE, jax_model
 
 torch.set_num_threads(2)
-
 NARROW = {"width_mult": 0.25}
 CASES = {  # name: (models.get kwargs, input size)
     "resnet18": (dict(num_classes=10, arch_params=NARROW), 64),
@@ -52,7 +52,7 @@ def _numpy(tree):
 def carried_pair(name, **kw):
     """(JAX model, port model on the CPU) carrying the port model's weights."""
     pm = models.get(name, device="cpu", **kw)
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, convert_state_dict(sd, jm.variables, resnet_key_mapper())))
     return jm, pm
@@ -67,7 +67,8 @@ def pair(request):
 
 def test_weights_carry_both_ways(pair):
     """JAX's tree of the port's weights converts back to the same tensors, bit for bit,
-    and the JAX model's own initial parameters load strictly into a fresh port net."""
+    and a JAX model's initial parameters (flax's default initializers over its traced init)
+    load strictly into a fresh port net."""
     name, jm, pm, _ = pair
     back = variables_from_jax_to_torch(_numpy(jm.variables), RESNET_RULES)
     sd = pm.net.state_dict()
@@ -76,7 +77,7 @@ def test_weights_carry_both_ways(pair):
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(back[k], v), k
     kw, _ = CASES[name]
-    fresh = jax_models.get(name, **kw)
+    fresh = jax_model(name, **kw)
     net = models.get(name, device="cpu", **kw).net
     net.load_state_dict(variables_from_jax_to_torch(_numpy(fresh.variables), RESNET_RULES), strict=True)
     assert torch.equal(net.linear.weight, torch.from_numpy(np.asarray(fresh.params["linear"]["kernel"]).T.copy()))
@@ -85,7 +86,7 @@ def test_weights_carry_both_ways(pair):
 def test_forward_eval_matches_jax(pair):
     name, jm, pm, size = pair
     x = np.random.RandomState(1).randn(3, size, size, 3).astype(np.float32)
-    ref = np.asarray(jm(jnp.asarray(x), train=False))
+    ref = np.asarray(jax.jit(lambda v, x: jm.module.apply(v, x, train=False))(jm.variables, jnp.asarray(x)))
     with torch.no_grad():
         got = pm.net.eval()(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
     assert got.shape == ref.shape == (3, 10) and np.abs(ref).max() > 1.0
@@ -110,7 +111,8 @@ def test_forward_train_mode_bn_matches_jax_in_fp64(pair):
     v0 = _numpy(jm.variables)
     with jax.enable_x64():
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v0)
-        out, mutated = jm.module.apply(v64, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        out, mutated = jax.jit(lambda v, x: jm.module.apply(v, x, train=True, mutable=["batch_stats"]),
+                               compiler_options=FP64_COMPILE)(v64, jnp.asarray(x))
         ref = np.asarray(out)
         new_stats = _numpy(mutated["batch_stats"])
     net = models.get(name, device="cpu", **CASES[name][0]).net
@@ -144,7 +146,7 @@ def test_bottleneck_backbone_mode_and_expansion_match_jax():
     kw = dict(num_blocks=(1, 2, 1, 1), block="bottleneck", width_mult=0.25, expansion=2, backbone_mode=True)
     jmod = JaxResNet(**kw)
     x = np.random.RandomState(3).randn(2, 48, 48, 3).astype(np.float32)
-    variables = _numpy(jmod.init(jax.random.PRNGKey(0), jnp.asarray(x), train=False))
+    variables = _numpy(jax.jit(jmod.init, static_argnames="train")(jax.random.PRNGKey(0), jnp.asarray(x), train=False))
     rng = np.random.RandomState(4)
     for path, leaf in jax.tree_util.tree_flatten_with_path(variables["batch_stats"])[0]:
         leaf[...] = rng.rand(*leaf.shape) + (0.5 if path[-1].key == "var" else -0.5)

@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.common import config as jax_config
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.common import config
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -35,7 +35,7 @@ def test_reshaped_arch_params_build_the_jax_network():
     ap = config.load_arch_params("yolo_nas_s_arch_params")
     ap["backbone"]["NStageBackbone"]["stem"]["YoloNASStem"]["out_channels"] = 32
     ap["heads"]["NDFLHeads"]["heads_list"][0]["YoloNASDFLHead"]["inter_channels"] = 64
-    jm = jax_models.get("yolo_nas_s", num_classes=5, image_size=64, arch_params=ap)
+    jm = jax_model("yolo_nas_s", num_classes=5, image_size=64, arch_params=ap)
     pm = models.get("yolo_nas_s", num_classes=5, image_size=64, arch_params=ap, device="cpu")
     stock = models.get("yolo_nas_s", num_classes=5, image_size=64, device="cpu")
     assert pm.net.backbone.stem.conv.branch_3x3.conv.weight.shape[0] == 32

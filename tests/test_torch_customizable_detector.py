@@ -67,15 +67,16 @@ def test_registered_builders_match_jax():
 def test_yaml_style_yolo_nas_matches_jax():
     det = jcd.CustomizableDetector(**SPEC)
     x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
-    variables = det.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    variables = jax.jit(det.init)(jax.random.PRNGKey(0), jnp.asarray(x))
     v = jax.tree_util.tree_map(lambda a: np.array(a, dtype=np.float32), jax.device_get(variables))
     for tree in v.values():
         for k in list(tree):
             tree[k.lstrip("_")] = tree.pop(k)
     for head in v["params"]["heads"].values():
         head["cls_pred"]["bias"][:] = 0.0
-    ref = det.apply(jax.tree_util.tree_map(jnp.asarray, {c: {"_" + k: t for k, t in tree.items()}
-                                                            for c, tree in v.items()}), jnp.asarray(x), train=False)
+    ref = jax.jit(lambda v, x: det.apply(v, x, train=False))(
+        jax.tree_util.tree_map(jnp.asarray, {c: {"_" + k: t for k, t in tree.items()} for c, tree in v.items()}),
+        jnp.asarray(x))
     net = pcd.CustomizableDetector(**SPEC)
     net.load_state_dict(variables_from_jax_to_torch(v), strict=True)
     with torch.no_grad():

@@ -41,7 +41,6 @@ import pytest
 import torch
 
 import torch_ddp_ranks as ranks
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.training import dataloaders as jax_dataloaders
 from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
 from super_gradients_tpu_torch import models
@@ -50,6 +49,7 @@ from super_gradients_tpu_torch.training.metrics import detection as det
 from test_torch_detection_transforms import smooth_image
 from test_torch_recipes import _write_split
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -71,7 +71,7 @@ def _norm(a, keys):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     work = tmp_path_factory.mktemp("ddp_trainer")
-    jm = jax_models.get("yolo_nas_s", num_classes=ranks.TRAIN_C, image_size=ranks.TRAIN_IMAGE)
+    jm = jax_model("yolo_nas_s", num_classes=ranks.TRAIN_C, image_size=ranks.TRAIN_IMAGE)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     init = variables_from_jax_to_torch(v)

@@ -184,7 +184,7 @@ def test_one_step_of_the_recipe_criterion_matches_jax(runs, case):
                                  train=True, mutable=["batch_stats"])
         return jloss(out, jnp.asarray(targets))
 
-    (jv, jaux), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(jm.variables["params"])
+    (jv, jaux), jgrads = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(jm.variables["params"])
     net = pm.net.train()
     pv, paux = get_loss(loss_name, cp)(net(torch.from_numpy(images)), torch.from_numpy(targets))
     pv.backward()

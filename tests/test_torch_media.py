@@ -15,7 +15,6 @@ import pytest
 import torch
 from PIL import Image
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.inference import media as jax_media
 from super_gradients_tpu.inference import prediction_results as jax_results
 from super_gradients_tpu.inference import stream as jax_stream
@@ -24,6 +23,7 @@ from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from super_gradients_tpu_torch.inference import media, prediction_results, stream, video
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -35,7 +35,7 @@ def _frames(n=8, h=48, w=64):
 
 @pytest.fixture(scope="module")
 def pair():
-    jm = jax_models.get("yolo_nas_s", num_classes=4, image_size=64)
+    jm = jax_model("yolo_nas_s", num_classes=4, image_size=64)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     pm = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")

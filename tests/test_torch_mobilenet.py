@@ -31,9 +31,9 @@ from super_gradients_tpu_torch.conversion import from_jax
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from super_gradients_tpu_torch.models.classification.mobilenet import _make_divisible
 from super_gradients_tpu_torch.models.segmentation.stdc import SeededDropout
+from torch_jax_init import FP64_COMPILE, jax_model
 
 torch.set_num_threads(2)
-
 SIDE = 64
 CASES = {  # name: (models.get kwargs, port rules, JAX key mapper)
     "mobilenet_v1": (dict(num_classes=10), from_jax.MOBILENET_V1_RULES, tc.mobilenet_v1_key_mapper),
@@ -53,7 +53,7 @@ def numpy_tree(tree):
 def carried_pair(name, kw, mapper):
     """(JAX model, port model on the CPU) carrying the port model's weights."""
     pm = models.get(name, device="cpu", **kw)
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))
     return jm, pm
@@ -101,7 +101,7 @@ def test_forward_train_mode_matches_jax_in_fp64(pair):
     with jax.enable_x64():
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v0)
         apply = functools.partial(module.apply, train=True, mutable=["batch_stats"])
-        out, mutated = jax.jit(apply)(v64, jnp.asarray(x))
+        out, mutated = jax.jit(apply, compiler_options=FP64_COMPILE)(v64, jnp.asarray(x))
         ref = np.asarray(out)
         new_stats = numpy_tree(mutated["batch_stats"])
     net = models.get(name, device="cpu", **kw).net

@@ -347,7 +347,7 @@ class _TinyDetector(nn.Module):
         return types.SimpleNamespace(pred_bboxes=boxes, pred_scores=torch.sigmoid(self.w).expand(b, 1, 1))
 
 
-def test_training_runs_with_jax_blocked():
+def test_training_runs_with_jax_blocked(tmp_path):
     """The training slice imports and takes CPU train steps with jax, flax, optax and
     the JAX package unavailable (as on the GPU machine), and never imports them."""
     import os
@@ -362,13 +362,13 @@ def test_training_runs_with_jax_blocked():
             sys.modules[name] = None
         import torch
         torch.set_num_threads(2)
-        import os, sys, tempfile
+        import os, sys
         from super_gradients_tpu_torch import models
         from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
         model = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")
         before = {k: v.clone() for k, v in model.net.state_dict().items()}
         loader = torch.utils.data.DataLoader(RandomDetectionDataset(4, (64, 64), 4, 8), batch_size=2)
-        trainer = Trainer("blocked", ckpt_root_dir=tempfile.mkdtemp())
+        trainer = Trainer("blocked", ckpt_root_dir=sys.argv[1])
         trainer.train(model, dict(max_epochs=1, loss="PPYoloELoss", criterion_params={"num_classes": 4},
                                   optimizer="AdamW", optimizer_params={"weight_decay": 1e-5}, initial_lr=2e-4,
                                   lr_mode="CosineLRScheduler", ema=True, mixed_precision=True,
@@ -385,7 +385,8 @@ def test_training_runs_with_jax_blocked():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = repo
-    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
 

@@ -1,7 +1,8 @@
 """YOLO-NAS-POSE of the PyTorch port against the JAX package's, on the same weights.
 
-YOLO-NAS-POSE N and S, 17 joints, 64x64, fp32. The JAX model's variables (every
-``cls_pred`` bias set to 0) go to the port through ``variables_from_jax_to_torch(v,
+YOLO-NAS-POSE N and S, 17 joints, 64x64, fp32. The JAX model's variables (flax's default
+initializers over the traced init, the kernels from a numpy seed: every ``cls_pred`` bias
+0) go to the port through ``variables_from_jax_to_torch(v,
 rules=YOLO_NAS_POSE_RULES)`` with ``load_state_dict(strict=True)``. Tolerances (those
 of ``tests/parity_utils.py``): ``pred_scores`` and ``pred_pose_scores`` ``atol=5e-4``;
 ``pred_bboxes`` and ``pred_pose_coords`` ``atol=5e-2, rtol=1e-3`` (pixels); the raw
@@ -14,6 +15,7 @@ yolo_nas_pose_key_mapper())`` gives the JAX variables exactly.
 
 import copy
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +34,7 @@ from super_gradients_tpu_torch.common import config
 from super_gradients_tpu_torch.conversion.from_jax import YOLO_NAS_POSE_RULES, variables_from_jax_to_torch
 from super_gradients_tpu_torch.models.model_factory import _calibrate_batch_norm
 from super_gradients_tpu_torch.models.pose import yolo_nas_pose
+from torch_jax_init import FP64_COMPILE, flax_like_variables
 
 torch.set_num_threads(2)
 SIDE = 64
@@ -47,10 +50,12 @@ def jax_pose_numpy_variables(model):
 
 
 def pose_pair(variant):
-    """(JAX model, its numpy variables, port model on CPU carrying them)."""
-    jm = jax_models.get(f"yolo_nas_pose_{variant}", image_size=SIDE)
-    v = jax_pose_numpy_variables(jm)
-    jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
+    """(JAX model, its numpy variables, port model on CPU carrying them): the JAX zoo's module
+    and config with flax's default initializers drawn from numpy seed 0 (no compiled init)."""
+    spec = jax_models.get_architecture(f"yolo_nas_pose_{variant}")(num_classes=None, arch_params={}, image_size=SIDE)
+    v = flax_like_variables(spec.module, (1, SIDE, SIDE, 3), seed=0)
+    jm = types.SimpleNamespace(module=spec.module, config=spec.config,
+                               variables=jax.tree_util.tree_map(jnp.asarray, v))
     pm = models.get(f"yolo_nas_pose_{variant}", image_size=SIDE, device="cpu")
     pm.net.load_state_dict(variables_from_jax_to_torch(v, rules=YOLO_NAS_POSE_RULES), strict=True)
     return jm, v, pm
@@ -84,10 +89,15 @@ def _port_forward(net, x):
         return net(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous())
 
 
+def _jax_forward(module, variables, x):
+    """``module.apply`` in eval mode, compiled as one program."""
+    return jax.jit(lambda v, x: module.apply(v, x, train=False))(variables, x)
+
+
 def test_forward_eval_matches_jax(pair):
     jm, _, pm = pair
     x = _x()
-    compare_pose_outputs(jm.apply(jnp.asarray(x)), _port_forward(pm.net.eval(), x))
+    compare_pose_outputs(_jax_forward(jm.module, jm.variables, jnp.asarray(x)), _port_forward(pm.net.eval(), x))
 
 
 def test_forward_train_mode_bn_matches_jax(pair):
@@ -101,7 +111,8 @@ def test_forward_train_mode_bn_matches_jax(pair):
     x = _x(3)
     with jax.enable_x64():
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), v)
-        ref, _ = jm.module.apply(v64, jnp.asarray(x.astype(np.float64)), train=True, mutable=["batch_stats"])
+        ref, _ = jax.jit(lambda v, x: jm.module.apply(v, x, train=True, mutable=["batch_stats"]),
+                         compiler_options=FP64_COMPILE)(v64, jnp.asarray(x.astype(np.float64)))
         ref = jax.tree_util.tree_map(np.asarray, ref)
     net = copy.deepcopy(pm.net).train()
     compare_pose_outputs(ref, _port_forward(net, x))
@@ -119,7 +130,7 @@ def test_forward_fused_matches_jax(pair):
     fparams, fstats = fuse_all_qarepvgg(v["params"], v["batch_stats"], bn_eps=cfg.bn_eps)
     fused_vars = {"params": fparams, "batch_stats": fstats}
     jfused = jax_pose.YoloNASPose(dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, fused="full")))
-    ref = jfused.apply(jax.tree_util.tree_map(jnp.asarray, fused_vars), jnp.asarray(x), train=False)
+    ref = _jax_forward(jfused, jax.tree_util.tree_map(jnp.asarray, fused_vars), jnp.asarray(x))
     fused = pm.fuse()
     assert fused is not pm and fused.config.fused and not pm.config.fused
     assert not any("branch_" in k for k in fused.net.state_dict())

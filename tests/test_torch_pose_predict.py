@@ -17,13 +17,13 @@ import pytest
 import torch
 from PIL import Image
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.conversion.from_jax import YOLO_NAS_POSE_RULES, variables_from_jax_to_torch
 from super_gradients_tpu_torch.inference import processing
 from super_gradients_tpu_torch.models.sg_model import DetectionModel, PoseEstimationModel
 from super_gradients_tpu_torch.ops.bbox import box_iou
 from test_torch_pose_model import jax_pose_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 SIZES = ((50, 70), (64, 64), (97, 33))
@@ -32,7 +32,7 @@ CONF = 0.2
 
 @pytest.fixture(scope="module")
 def pair():
-    jm = jax_models.get("yolo_nas_pose_n", image_size=64)
+    jm = jax_model("yolo_nas_pose_n", image_size=64)
     v = jax_pose_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     pm = models.get("yolo_nas_pose_n", image_size=64, device="cpu")

@@ -26,7 +26,6 @@ import numpy as np
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.training import dataloaders as jax_dataloaders
 from super_gradients_tpu.training.metrics import pose_estimation as jax_pose_metrics
 from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
@@ -35,6 +34,7 @@ from super_gradients_tpu_torch.conversion.from_jax import YOLO_NAS_POSE_RULES, v
 from super_gradients_tpu_torch.training import Trainer, dataloaders
 from test_torch_pose_model import jax_pose_numpy_variables
 from test_torch_train_step import GROUPS, _distance, _zero_variance_gain
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -61,17 +61,14 @@ def _port_model(variables):
 
 @pytest.fixture(scope="module")
 def jax_pair():
-    jm = jax_models.get("yolo_nas_pose_n", image_size=IMAGE)
-    v = jax_pose_numpy_variables(jm)
-    jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
-    return jm, v
+    jm = jax_model("yolo_nas_pose_n", image_size=IMAGE)
+    return jm, jax_pose_numpy_variables(jm)
 
 
 @pytest.fixture(scope="module")
 def runs(jax_pair, tmp_path_factory):
-    jm, v = jax_pair
-    jm = jax_models.get("yolo_nas_pose_n", image_size=IMAGE)
-    jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
+    _, v = jax_pair
+    jm = jax_model("yolo_nas_pose_n", variables=v, image_size=IMAGE)
     loader = jax_dataloaders.DataLoader(jax_dataloaders.RandomPoseDataset(2 * B, (IMAGE, IMAGE), J, MAX_POSES),
                                         batch_size=B)
     jt = JaxTrainer("pose_parity", ckpt_root_dir=str(tmp_path_factory.mktemp("ckpt")))
@@ -153,10 +150,11 @@ def _jittered_pose_batches(jm, seed=0, n_batches=2, b=4):
     own poses at the metric's NMS (every joint visible), moved by a seeded offset."""
     rng = np.random.RandomState(seed)
     metric = jax_pose_metrics.PoseEstimationMetrics(num_joints=J, post_prediction_conf=0.3)
+    forward = jax.jit(lambda v, x: jm.module.apply(v, x, train=False))
     out = []
     for _ in range(n_batches):
         x = rng.rand(b, IMAGE, IMAGE, 3).astype(np.float32)
-        nms = metric.preprocess_device(jm.module.apply(jm.variables, jnp.asarray(x), train=False), None)
+        nms = metric.preprocess_device(forward(jm.variables, jnp.asarray(x)), None)
         poses, boxes, nums = np.asarray(nms.poses), np.asarray(nms.boxes), np.asarray(nms.num_detections)
         targets = np.full((b, MAX_POSES, 5 + 3 * J), -1.0, np.float32)
         for i in range(b):

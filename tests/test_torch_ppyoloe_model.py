@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from parity_utils import assert_close
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion.torch_converter import convert_state_dict, ppyoloe_key_mapper
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.common.config import load_arch_params
@@ -30,6 +29,7 @@ from super_gradients_tpu_torch.conversion.from_jax import PPYOLOE_RULES, variabl
 from super_gradients_tpu_torch.models.detection import pp_yolo_e
 from super_gradients_tpu_torch.models.sg_model import DetectionModel
 from super_gradients_tpu_torch.modules.blocks import RepVGGBlock
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -65,7 +65,7 @@ def spread_head(jm, v, seed=0):
 @pytest.fixture(scope="module")
 def pair():
     """(JAX model, its numpy variables, port model on the CPU carrying them)."""
-    jm = jax_models.get("ppyoloe_s", num_classes=4, image_size=64, arch_params=AP)
+    jm = jax_model("ppyoloe_s", num_classes=4, image_size=64, arch_params=AP)
     v = spread_head(jm, numpy_variables(jm))
     pm = models.get("ppyoloe_s", num_classes=4, image_size=64, device="cpu", arch_params=AP)
     pm.net.load_state_dict(variables_from_jax_to_torch(v, PPYOLOE_RULES), strict=True)
@@ -120,7 +120,7 @@ def test_forward_train_mode_matches_jax(pair):
             sub["kernel"][:] *= 2.0 / np.std(np.asarray(ref.cls_logits))
         if k.startswith("pred_reg"):
             sub["kernel"][:] *= 2.0 / np.std(np.asarray(ref.reg_distri))
-    jm2 = jax_models.get("ppyoloe_s", num_classes=4, image_size=64, arch_params=AP)
+    jm2 = jax_model("ppyoloe_s", num_classes=4, image_size=64, arch_params=AP)
     jm2.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     ref, updates = jm2.apply(jnp.asarray(x), train=True)
     net = models.get("ppyoloe_s", num_classes=4, image_size=64, device="cpu", arch_params=AP).net
@@ -196,7 +196,7 @@ def test_configs_and_arch_params_override_match_jax(name, width, depth):
     assert (spec.config.width_mult, spec.config.depth_mult) == (jcfg.width_mult, jcfg.depth_mult) == (width, depth)
     assert spec.config.num_classes == 3 and spec.input_hw == (64, 64)
     if name == "ppyoloe_s":
-        jm = jax_models.get("ppyoloe_s", num_classes=3, image_size=64, arch_params=ap)
+        jm = jax_model("ppyoloe_s", num_classes=3, image_size=64, arch_params=ap)
         sd = variables_from_jax_to_torch(numpy_variables(jm), PPYOLOE_RULES)
         mine = spec.net.state_dict()
         assert sorted(sd) == sorted(mine)

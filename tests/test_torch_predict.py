@@ -33,6 +33,7 @@ from super_gradients_tpu_torch.inference.processing import resize_bilinear
 from super_gradients_tpu_torch.ops.bbox import box_iou
 from super_gradients_tpu_torch.ops.kernels.nms_exact import exact_nms_keep
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -42,7 +43,7 @@ SIZES = ((50, 70), (64, 64), (97, 33))
 
 @pytest.fixture(scope="module")
 def pair():
-    jm = jax_models.get("yolo_nas_s", num_classes=4, image_size=64)
+    jm = jax_model("yolo_nas_s", num_classes=4, image_size=64)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     pm = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")

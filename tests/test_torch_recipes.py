@@ -29,7 +29,6 @@ import pytest
 import torch
 from PIL import Image
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.common import config as jax_config
 from super_gradients_tpu.training import dataloaders as jax_loaders
 from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
@@ -40,6 +39,7 @@ from super_gradients_tpu_torch.training import Trainer
 from super_gradients_tpu_torch.training.metrics import detection as det
 from test_torch_detection_transforms import smooth_image
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model as traced_jax_model
 
 torch.set_num_threads(2)
 
@@ -49,7 +49,16 @@ RECIPE_FILES = ["roboflow_yolo_nas_m.yaml", "coco2017_yolo_nas_s.yaml", "trainin
                 "dataset_params/coco_detection_yolo_nas_dataset_params.yaml",
                 "dataset_params/roboflow_detection_dataset_params.yaml", "roboflow_yolo_nas_s.yaml",
                 "arch_params/yolo_nas_s_arch_params.yaml", "arch_params/yolo_nas_m_arch_params.yaml",
-                "arch_params/yolo_nas_l_arch_params.yaml"]
+                "arch_params/yolo_nas_l_arch_params.yaml",
+                # the Cityscapes segmentation zoo (DDRNet, RegSeg48, SegFormer, UNet)
+                "cityscapes_ddrnet.yaml", "cityscapes_al_ddrnet.yaml", "cityscapes_regseg48.yaml",
+                "cityscapes_segformer.yaml", "cityscapes_segformer_b0.yaml", "cityscapes_segformer_b1.yaml",
+                "cityscapes_segformer_b2.yaml", "cityscapes_segformer_b3.yaml", "cityscapes_segformer_b4.yaml",
+                "cityscapes_segformer_b5.yaml", "arch_params/unet_arch_params.yaml",
+                "arch_params/unet_default_arch_params.yaml", "dataset_params/cityscapes_dataset_params.yaml",
+                "dataset_params/cityscapes_al_dataset_params.yaml", "dataset_params/cityscapes_ddrnet_dataset_params.yaml",
+                "dataset_params/cityscapes_regseg48_dataset_params.yaml",
+                "dataset_params/cityscapes_segformer_dataset_params.yaml"]
 NUM_CLASSES, SIDE = 4, 64
 
 
@@ -93,7 +102,7 @@ def _write_split(folder, images, boxes_labels):
 
 @pytest.fixture(scope="module")
 def jax_model():
-    jm = jax_models.get("yolo_nas_s", num_classes=NUM_CLASSES, image_size=SIDE)
+    jm = traced_jax_model("yolo_nas_s", num_classes=NUM_CLASSES, image_size=SIDE)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     return jm, v

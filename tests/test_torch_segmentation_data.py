@@ -18,7 +18,6 @@ import pytest
 import torch
 from PIL import Image
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion import torch_converter as tc
 from super_gradients_tpu.inference import prediction_results as jax_results
 from super_gradients_tpu.inference import processing as jax_processing
@@ -29,6 +28,7 @@ from super_gradients_tpu_torch.inference import processing
 from super_gradients_tpu_torch.inference.prediction_results import SegmentationPrediction
 from super_gradients_tpu_torch.training import dataloaders, datasets
 from tools.cityscapes_synthetic import EVALUATED_LABEL_IDS, write_cityscapes_tree
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -216,7 +216,7 @@ def test_no_cv2_stand_ins(no_cv2):
 def carried_pair(name, **kw):
     """(JAX model, port model on the CPU) carrying the port model's weights."""
     pm = models.get(name, device="cpu", **kw)
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     mapper = tc.ppliteseg_key_mapper if name.startswith("pp_lite") else tc.stdc_key_mapper
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))

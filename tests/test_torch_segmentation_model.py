@@ -47,6 +47,7 @@ from super_gradients_tpu_torch.conversion.from_jax import (
 )
 from super_gradients_tpu_torch.models.segmentation import ppliteseg, stdc
 from super_gradients_tpu_torch.models.sg_model import ClassificationModel, SegmentationModel
+from torch_jax_init import FP64_COMPILE, flax_like_variables, jax_model, param_count
 
 torch.set_num_threads(2)
 
@@ -78,15 +79,24 @@ def calibrate_on(net, x):
 
 
 def carried_pair(name, **kw):
-    """(JAX model, port model on the CPU) carrying the port model's weights, its BN
-    statistics calibrated on a standard-normal batch at 96x96 (the test inputs' law)."""
+    """(JAX model, port model on the CPU, the JAX model's initial variables: flax's default
+    initializers over its traced init, no init compiled) with the JAX model carrying the port
+    model's weights, its BN statistics calibrated on a standard-normal batch at 96x96 (the test
+    inputs' law)."""
     pm = models.get(name, device="cpu", **kw)
     calibrate_on(pm.net, torch.randn((4, 3, 96, 96), generator=torch.Generator().manual_seed(0)))
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
+    initial = _numpy(jm.variables)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     mapper, _ = MAPPERS[_family(name)]
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))
-    return jm, pm
+    return jm, pm, initial
+
+
+def jax_param_count(name):
+    """The parameter count of the JAX zoo's model from its traced init (nothing compiled)."""
+    spec = jax_models.get_architecture(name)(num_classes=None, arch_params={})
+    return param_count(spec.module, (1, *(spec.init_hw or spec.input_hw), 3), train=False)
 
 
 SEG_CASES = {  # name: models.get kwargs
@@ -105,15 +115,15 @@ def _name(case):
 
 @pytest.fixture(scope="module", params=list(SEG_CASES))
 def pair(request):
-    jm, pm = carried_pair(_name(request.param), **SEG_CASES[request.param])
-    return request.param, jm, pm
+    jm, pm, initial = carried_pair(_name(request.param), **SEG_CASES[request.param])
+    return request.param, jm, pm, initial
 
 
 def test_weights_carry_both_ways(pair):
     """JAX's tree of the port's weights converts back to the same tensors, bit for bit,
-    and the JAX model's own initial parameters load strictly into a fresh port net, with
-    the same parameter count on both sides."""
-    case, jm, pm = pair
+    and a JAX model's initial parameters (flax's default initializers over its traced init)
+    load strictly into a fresh port net, with the same parameter count on both sides."""
+    case, jm, pm, initial = pair
     _, rules = MAPPERS[_family(case)]
     back = variables_from_jax_to_torch(_numpy(jm.variables), rules)
     sd = pm.net.state_dict()
@@ -121,10 +131,9 @@ def test_weights_carry_both_ways(pair):
     for k, v in sd.items():
         if not k.endswith("num_batches_tracked"):
             assert torch.equal(back[k], v), k
-    fresh = jax_models.get(_name(case), **SEG_CASES[case])
     net = models.get(_name(case), device="cpu", **SEG_CASES[case]).net
-    net.load_state_dict(variables_from_jax_to_torch(_numpy(fresh.variables), rules), strict=True)
-    n_jax = sum(np.asarray(a).size for a in jax.tree_util.tree_leaves(fresh.variables["params"]))
+    net.load_state_dict(variables_from_jax_to_torch(initial, rules), strict=True)
+    n_jax = sum(np.asarray(a).size for a in jax.tree_util.tree_leaves(initial["params"]))
     assert n_jax == sum(p.numel() for p in net.parameters())
 
 
@@ -135,11 +144,12 @@ def _eval_sizes(case):
 def test_forward_eval_matches_jax(pair):
     """The port's fp32 logits within twice JAX's distance to an fp64 run of the port; STDC
     classification's also at ``atol=rtol=1e-4``."""
-    case, jm, pm = pair
+    case, jm, pm, _ = pair
     net64 = copy.deepcopy(pm.net).double().eval()
+    forward = jax.jit(lambda v, x: jm.module.apply(v, x, train=False))
     for hw in _eval_sizes(case):
         x = np.random.RandomState(hw[0]).randn(2, *hw, 3).astype(np.float32)
-        ref = np.asarray(jm(jnp.asarray(x), train=False))
+        ref = np.asarray(forward(jm.variables, jnp.asarray(x)))
         xt = torch.from_numpy(x).permute(0, 3, 1, 2)
         with torch.no_grad(), torch.backends.mkldnn.flags(enabled=False):
             got, ref64 = pm.net.eval()(xt), net64(xt.double())
@@ -186,12 +196,13 @@ def test_forward_train_mode_matches_jax_in_fp64(case):
     rng = np.random.RandomState(3)
     x = rng.randn(2, *hw, 3)
     jmod = make_jax()
-    v0 = _numpy(jmod.init(jax.random.PRNGKey(0), jnp.zeros((1, *hw, 3)), train=False))
+    v0 = flax_like_variables(jmod, (1, *hw, 3), seed=0, train=False)
     for path, leaf in jax.tree_util.tree_flatten_with_path(v0["batch_stats"])[0]:
         leaf[...] = rng.rand(*leaf.shape) + (0.5 if path[-1].key == "var" else -0.5)
     with jax.enable_x64():
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v0)
-        out, mutated = jmod.apply(v64, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        out, mutated = jax.jit(lambda v, x: jmod.apply(v, x, train=True, mutable=["batch_stats"]),
+                               compiler_options=FP64_COMPILE)(v64, jnp.asarray(x))
         refs = [np.asarray(o) for o in (out if isinstance(out, tuple) else (out,))]
         new_stats = _numpy(mutated["batch_stats"])
     net = make_port()
@@ -295,9 +306,8 @@ def test_zoo_registers_the_family(name, expected_params):
     raises without a GPU."""
     model = models.get(name, device="cpu")
     jspec = jax_models.get_architecture(name)(num_classes=None, arch_params={})
-    jm = jax_models.get(name)
     assert sum(p.numel() for p in model.net.parameters()) == expected_params
-    assert expected_params == sum(np.asarray(a).size for a in jax.tree_util.tree_leaves(jm.variables["params"]))
+    assert expected_params == jax_param_count(name)
     assert model.num_classes == jspec.num_classes and tuple(jspec.input_hw) == (
         (224, 224) if "classification" in name else (512, 1024))
     assert isinstance(model, ClassificationModel if "classification" in name else SegmentationModel)

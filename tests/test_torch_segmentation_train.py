@@ -31,7 +31,6 @@ import numpy as np
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion import torch_converter as tc
 from super_gradients_tpu.training import dataloaders as jax_dataloaders
 from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
@@ -40,6 +39,7 @@ from super_gradients_tpu_torch.conversion.from_jax import PPLITESEG_RULES, STDC_
 from super_gradients_tpu_torch.models.segmentation.stdc import SeededDropout
 from super_gradients_tpu_torch.training import RandomSegmentationDataset, Trainer
 from super_gradients_tpu_torch.training.callbacks import Callback
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -91,7 +91,7 @@ def runs(request, tmp_path_factory):
     arch_params, _, _, mapper, _, _, _, steps_per_epoch = CASES[name]
     pm = _port_model(name)
     sd0 = {k: v.clone() for k, v in pm.net.state_dict().items()}
-    jm = jax_models.get(name, num_classes=NUM_CLASSES, input_hw=HW, arch_params=arch_params)
+    jm = jax_model(name, num_classes=NUM_CLASSES, input_hw=HW, arch_params=arch_params)
     jm.module = type(jm.module)(dataclasses.replace(jm.module.cfg, dropout=0.0))
     sd_np = {k: v.numpy() for k, v in sd0.items()}
     jm.update_variables(jax.tree_util.tree_map(np.asarray, tc.convert_state_dict(sd_np, jm.variables, mapper())))

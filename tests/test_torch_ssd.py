@@ -38,9 +38,9 @@ from super_gradients_tpu_torch.conversion import from_jax
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from super_gradients_tpu_torch.models.detection import ssd
 from super_gradients_tpu_torch.models.model_factory import _calibrate_batch_norm
+from torch_jax_init import FP64_COMPILE, jax_model
 
 torch.set_num_threads(2)
-
 NUM_CLASSES = 4
 GRID_64 = {"fig_size": 64, "feat_size": [4, 2, 1, 1, 1, 1], "scales": [6, 16, 27, 37, 47, 57, 67],
            "aspect_ratios": [[2, 3]] * 6}
@@ -66,7 +66,7 @@ def carried_pair(case):
     name, kw, side, _, mapper = CASES[case]
     pm = models.get(name, device="cpu", **kw)
     _calibrate_batch_norm(pm.net, torch.Generator().manual_seed(3), (16, 3, side, side))
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))
     return jm, pm
@@ -158,7 +158,9 @@ def test_forward_train_mode_matches_jax(pair):
     if case == "lite":
         x = np.random.RandomState(2).rand(2, side, side, 3)
         with jax.enable_x64():
-            out, mutated = apply(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v0), jnp.asarray(x))
+            apply64 = jax.jit(functools.partial(jm.module.apply, train=True, mutable=["batch_stats"]),
+                              compiler_options=FP64_COMPILE)
+            out, mutated = apply64(jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), v0), jnp.asarray(x))
         net = net.double().train()
         with torch.no_grad():
             got = net(torch.from_numpy(x).permute(0, 3, 1, 2))

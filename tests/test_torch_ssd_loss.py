@@ -30,7 +30,6 @@ import optax
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.common import config as jax_config
 from super_gradients_tpu.conversion import torch_converter as tc
 from super_gradients_tpu.models.detection.yolo_nas import YoloNASOutputs as JaxOutputs
@@ -47,6 +46,7 @@ from super_gradients_tpu_torch.models.segmentation.stdc import SeededDropout
 from super_gradients_tpu_torch.training.losses import get_loss
 from super_gradients_tpu_torch.training.losses.ssd_loss import SSDLoss
 from super_gradients_tpu_torch.training.optimizers import build_optimizer
+from torch_jax_init import FP64_COMPILE, jax_model
 
 torch.set_num_threads(2)
 
@@ -208,7 +208,7 @@ def _check_one_step(recipe):
     if hp["loss"] == "SSDLoss":  # the 64 px model's grid in place of the recipe's 320 px one
         hp["criterion_params"] = dict(hp["criterion_params"], anchors_cxcywh=ANCHORS)
     pm = models.get(name, device="cpu", **kw)
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))
     module = jm.module.clone(dropout=0.0) if hasattr(jm.module, "dropout") else jm.module
@@ -233,7 +233,8 @@ def _check_one_step(recipe):
             updates, _ = tx.update(grads, tx.init(p), p)
             return value, grads, jax.tree_util.tree_map(lambda new, old: new - old, optax.apply_updates(p, updates), p)
 
-        jv, jgrads, moved = jax.tree_util.tree_map(np.asarray, jax.jit(jax_step)(params))
+        jv, jgrads, moved = jax.tree_util.tree_map(
+            np.asarray, jax.jit(jax_step, compiler_options=FP64_COMPILE)(params))
         jv = float(jv)
 
     net = pm.net.double().train()

@@ -40,13 +40,13 @@ import numpy as np
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.training import dataloaders as jax_dataloaders
 from super_gradients_tpu.training.trainer import Trainer as JaxTrainer
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from super_gradients_tpu_torch.training import RandomDetectionDataset, Trainer
 from test_torch_yolo_nas import jax_numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -79,7 +79,7 @@ def _f64(batches):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    jm = jax_models.get("yolo_nas_s", num_classes=NUM_CLASSES, image_size=IMAGE)
+    jm = jax_model("yolo_nas_s", num_classes=NUM_CLASSES, image_size=IMAGE)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     loader = jax_dataloaders.DataLoader(

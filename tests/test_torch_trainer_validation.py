@@ -66,6 +66,11 @@ def pair():
     return jm, pm
 
 
+def _jax_forward(jm, x):
+    """The JAX model's eval-mode outputs, compiled as one program."""
+    return jax.jit(lambda v, x: jm.module.apply(v, x, train=False))(jm.variables, jnp.asarray(x))
+
+
 def _jittered_batches(jm, seed=0, n_batches=2, b=4, max_boxes=12):
     """Image batches (NHWC for JAX, NCHW for the port) whose targets are the JAX
     model's own detections at the metric's NMS, moved by a seeded offset."""
@@ -74,7 +79,7 @@ def _jittered_batches(jm, seed=0, n_batches=2, b=4, max_boxes=12):
     out = []
     for _ in range(n_batches):
         x = rng.rand(b, IMAGE, IMAGE, 3).astype(np.float32)
-        nms = metric.preprocess_device(jm.module.apply(jm.variables, jnp.asarray(x), train=False), None)
+        nms = metric.preprocess_device(_jax_forward(jm, x), None)
         boxes, labels, nums = np.asarray(nms.boxes), np.asarray(nms.labels), np.asarray(nms.num_detections)
         targets = np.full((b, max_boxes, 5), -1.0, np.float32)
         for i in range(b):
@@ -92,8 +97,7 @@ def test_evaluate_matches_jax(pair, tmp_path):
 
     thresholds = np.linspace(0.5, 0.95, 10)
     for (x, t), (px, _) in zip(jax_batches, port_batches):
-        ref = jax_det.DetectionMetrics(num_cls=NUM_CLASSES).preprocess_device(
-            jm.module.apply(jm.variables, jnp.asarray(x), train=False), None)
+        ref = jax_det.DetectionMetrics(num_cls=NUM_CLASSES).preprocess_device(_jax_forward(jm, x), None)
         with torch.no_grad():
             got = det.DetectionMetrics(num_cls=NUM_CLASSES).preprocess_device(pm.net.eval()(px), None)
         np.testing.assert_array_equal(got.num_detections.numpy(), np.asarray(ref.num_detections))

@@ -19,12 +19,12 @@ import pytest
 import torch
 
 from parity_utils import assert_close
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion.torch_converter import convert_state_dict, yolo_nas_key_mapper
 from super_gradients_tpu.models.detection import yolo_nas as jax_yolo_nas
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
 from super_gradients_tpu_torch.models.detection import yolo_nas
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -41,7 +41,7 @@ def jax_numpy_variables(model):
 @pytest.fixture(scope="module")
 def pair():
     """(JAX model, its numpy variables, port model on CPU carrying them)."""
-    jm = jax_models.get("yolo_nas_s", num_classes=4, image_size=64)
+    jm = jax_model("yolo_nas_s", num_classes=4, image_size=64)
     v = jax_numpy_variables(jm)
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, v))
     pm = models.get("yolo_nas_s", num_classes=4, image_size=64, device="cpu")

@@ -20,7 +20,6 @@ import torch
 import torch.nn.functional as F
 
 from parity_utils import assert_close
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion.torch_converter import convert_state_dict, yolox_key_mapper
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.common.config import load_arch_params
@@ -29,6 +28,7 @@ from super_gradients_tpu_torch.conversion.from_jax import YOLOX_RULES, variables
 from super_gradients_tpu_torch.models.detection import yolox
 from super_gradients_tpu_torch.models.sg_model import DetectionModel
 from test_torch_ppyoloe_model import SIZES, _images, _port_forward, _x, assert_predictions_equal, numpy_variables
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -57,7 +57,7 @@ def spread_yolox_head(jm, v, train=False, seed=0):
 
 
 def yolox_pair(train=False):
-    jm = jax_models.get("yolox_n", num_classes=4, image_size=64)
+    jm = jax_model("yolox_n", num_classes=4, image_size=64)
     v = spread_yolox_head(jm, numpy_variables(jm), train=train)
     pm = models.get("yolox_n", num_classes=4, image_size=64, device="cpu")
     pm.net.load_state_dict(variables_from_jax_to_torch(v, YOLOX_RULES), strict=True)
@@ -208,7 +208,7 @@ def test_registrations_match_jax(name):
     if not ap:
         assert (spec.config.depth, spec.config.width) == (depth, width)
     else:
-        jm = jax_models.get(name, num_classes=3, image_size=64, arch_params=ap)
+        jm = jax_model(name, num_classes=3, image_size=64, arch_params=ap)
         sd = variables_from_jax_to_torch(numpy_variables(jm), YOLOX_RULES)
         mine = spec.net.state_dict()
         assert sorted(sd) == sorted(mine)

@@ -18,9 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from super_gradients_tpu import models as jax_models
 from super_gradients_tpu.conversion import torch_converter as tc
 from super_gradients_tpu_torch import models
+from torch_jax_init import jax_model
 
 torch.set_num_threads(2)
 
@@ -42,7 +42,7 @@ ALIASES = {"custom_resnet50": "custom_resnet", "custom_resnet50_cifar": "custom_
 def test_forward_matches_jax(name):
     kw, hw, mapper = CASES[name]
     pm = models.get(name, device="cpu", **kw)
-    jm = jax_models.get(name, **kw)
+    jm = jax_model(name, **kw)
     sd = {k: v.numpy() for k, v in pm.net.state_dict().items()}
     jm.update_variables(jax.tree_util.tree_map(jnp.asarray, tc.convert_state_dict(sd, jm.variables, mapper())))
     assert pm.num_params() == jm.num_params() and pm.num_classes == jm.num_classes

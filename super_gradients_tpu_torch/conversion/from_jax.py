@@ -1,20 +1,21 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
 ``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
 YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC, PP-LiteSeg, DDRNet, RegSeg,
-UNet and SegFormer segmentation models, MobileNet V1 / V2 / V3 and SSD).
+UNet, SegFormer, ShelfNet and LadderNet segmentation models, MobileNet V1 / V2 / V3 and SSD).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
 of those rules (``YOLO_NAS_RULES``, ``PPYOLOE_RULES``, ``YOLOX_RULES``, ``YOLO_NAS_POSE_RULES``,
 ``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``DDRNET_RULES``,
-``REGSEG_RULES``, ``unet_rules``, ``SEGFORMER_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
+``REGSEG_RULES``, ``unet_rules``, ``SEGFORMER_RULES``, ``SHELFNET_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
 ``SSD_V1_RULES``, ``SSD_LITE_V2_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout
 transforms:
 
 - conv kernel HWIO -> OIHW;
 - dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``, and a squeeze-excitation 1x1
   conv ``[1, 1, in, out]`` -> the original's ``Linear`` weight ``[out, in]``;
-- conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]``;
+- conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]`` (YOLO-NAS's neck
+  ``upsample``, ShelfNet HW's ``up_conv_list``);
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
   plus a ``num_batches_tracked`` of 0 so that ``load_state_dict(strict=True)`` passes.
 
@@ -130,6 +131,16 @@ RESNET_RULES: Rules = (
     (r"shortcut_bn", "shortcut.1"),
 )
 
+
+
+# ShelfNet (copy of the JAX package's SHELFNET_RULES), and LadderNet, which has the same trunk and
+# no JAX mapper: the trunk's stem is `backbone.conv1` / `backbone.bn1`, the FCN aux head a
+# Sequential under `aux_head.fcn`; every other name is the flax module's
+SHELFNET_RULES: Rules = RESNET_RULES + (
+    (r"^backbone\.conv1\.conv$", "backbone.conv1"),
+    (r"^backbone\.conv1\.bn$", "backbone.bn1"),
+    (r"^aux_head_fcn", "aux_head.fcn"),
+)
 
 
 def _stdc_backbone_rules(prefix: str) -> Rules:
@@ -398,7 +409,7 @@ def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
         return value[0, 0].T  # the JAX SE's 1x1 convs [1, 1, in, out] -> the original's Linear [out, in]
     if value.ndim != 4:
         raise ValueError(f"{'/'.join(path)}: only conv and dense kernels are converted, got shape {value.shape}")
-    if "upsample" in path[-2]:
+    if "upsample" in path[-2] or "up_conv_list" in path[-2]:
         return value.transpose(2, 3, 0, 1)  # [kh, kw, in, out] -> ConvTranspose2d [in, out, kh, kw]
     return value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
 

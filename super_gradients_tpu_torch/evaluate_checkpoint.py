@@ -2,7 +2,8 @@
 ``python -m super_gradients_tpu_torch.evaluate_checkpoint --experiment_name=<name> [--ckpt_name=ckpt_best]``
 
 Rebuilds the run's model and val loader from its ``recipe.json``, loads the named
-checkpoint and validates (``Trainer.evaluate_checkpoint``).
+checkpoint and validates (``Trainer.evaluate_checkpoint``), on the device the run's recipe
+names (the GPU where it names none).
 """
 
 from __future__ import annotations
@@ -18,10 +19,8 @@ def main(argv=None):
     parser.add_argument("--run_id", "--run-id", dest="run_id", default=None)
     args = parser.parse_args(argv)
 
-    from super_gradients_tpu_torch.parallel.mesh import setup_device
     from super_gradients_tpu_torch.training.trainer import Trainer
 
-    setup_device()
     results = Trainer.evaluate_checkpoint(
         experiment_name=args.experiment_name,
         ckpt_root_dir=args.ckpt_root_dir,

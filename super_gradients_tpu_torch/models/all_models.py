@@ -1,6 +1,7 @@
 """Architecture registrations of the port (the ResNet, STDC classification, MobileNet,
 YOLO-NAS, PP-YOLOE, YOLOX, SSD, YOLO-NAS-POSE, STDC segmentation, PP-LiteSeg, DDRNet,
-RegSeg, UNet and SegFormer rows of ``super_gradients_tpu/models/all_models.py``)."""
+RegSeg, UNet, SegFormer, ShelfNet and LadderNet rows of
+``super_gradients_tpu/models/all_models.py``)."""
 
 from __future__ import annotations
 
@@ -54,6 +55,12 @@ from super_gradients_tpu_torch.models.segmentation.ddrnet import (
 )
 from super_gradients_tpu_torch.models.segmentation.ppliteseg import PP_LITE_B_CFG, PP_LITE_T_CFG, PPLiteSeg
 from super_gradients_tpu_torch.models.segmentation.regseg import RegSeg, RegSegCfg
+from super_gradients_tpu_torch.models.segmentation.shelfnet_laddernet import (
+    LadderNet,
+    LadderNetCfg,
+    ShelfNet,
+    ShelfNetCfg,
+)
 from super_gradients_tpu_torch.models.segmentation.stdc import (
     STDC1_CFG,
     STDC2_CFG,
@@ -593,3 +600,25 @@ def _segformer(base, num_classes=None, arch_params=None, input_hw=(512, 1024), *
 for _name, _base in (("segformer_b0", SEGFORMER_B0), ("segformer_b1", SEGFORMER_B1), ("segformer_b2", SEGFORMER_B2),
                      ("segformer_b3", SEGFORMER_B3), ("segformer_b4", SEGFORMER_B4), ("segformer_b5", SEGFORMER_B5)):
     register_model(_name)(lambda _base=_base, **kw: _segformer(_base, **kw))
+
+
+def _shelfnet(variant, num_classes=None, arch_params=None, input_hw=(512, 1024), **kw) -> ModelSpec:
+    """ShelfNet (it reads ``arch_params.aux_outputs`` alone, as in the JAX zoo: every head's
+    output in eval mode too)."""
+    nc = num_classes or 19
+    cfg = ShelfNetCfg(num_classes=nc, variant=variant, aux_outputs=bool((arch_params or {}).get("aux_outputs", False)))
+    return _seg_spec(ShelfNet(cfg), nc, input_hw, cfg)
+
+
+for _name, _variant in (("shelfnet18_lw", "18_lw"), ("shelfnet34_lw", "34_lw"), ("shelfnet50", "50"),
+                        ("shelfnet50_3343", "50_3343"), ("shelfnet101", "101")):
+    register_model(_name)(lambda _variant=_variant, **kw: _shelfnet(_variant, **kw))
+
+
+@register_model("laddernet_50")
+def laddernet_50(num_classes=None, arch_params=None, input_hw=(512, 1024), **kw):
+    """LadderNet on a BasicBlock 2-2-2-2 trunk, as the JAX zoo builds it (it reads no
+    ``arch_params``)."""
+    nc = num_classes or 19
+    cfg = LadderNetCfg(num_classes=nc)
+    return _seg_spec(LadderNet(cfg), nc, input_hw, cfg)

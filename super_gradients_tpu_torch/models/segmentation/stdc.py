@@ -70,8 +70,19 @@ class SeededDropout(nn.Module):
             return x
         generator = torch.Generator(device=x.device).manual_seed(self.seed + self.calls)
         self.calls += 1
-        keep = torch.rand(x.shape, generator=generator, device=x.device) >= self.p
+        keep = torch.rand(self.mask_shape(x), generator=generator, device=x.device) >= self.p
         return x * keep / (1.0 - self.p)
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+
+class SeededChannelDropout(SeededDropout):
+    """:class:`SeededDropout` of whole channels: one draw an image and a channel, the same over
+    H and W (torch's ``Dropout2d``, flax's ``Dropout(broadcast_dims=(1, 2))`` of an NHWC map)."""
+
+    def mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return (*x.shape[:2], *(1,) * (x.dim() - 2))
 
 
 class STDCBlock(nn.Module):

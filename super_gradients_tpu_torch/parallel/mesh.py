@@ -74,13 +74,17 @@ def setup_device(num_devices: Optional[int] = None, device: Optional[str] = None
     Args:
         num_devices: the ranks the run must have (``None``: as launched). More than one
             without a launcher's environment, or another number than ``WORLD_SIZE``, raises.
-        device: ``"cuda"`` (the default when a GPU is present) or ``"cpu"``. Each rank takes
-            ``cuda:LOCAL_RANK``, or ``cuda:(LOCAL_RANK % device_count)`` over gloo.
+        device: ``"cuda"`` (the default) or ``"cpu"``. Each rank takes ``cuda:LOCAL_RANK``,
+            or ``cuda:(LOCAL_RANK % device_count)`` over gloo. ``"cuda"`` raises when no GPU
+            is visible: the CPU runs only where the caller asks for it.
         backend: ``None`` (NCCL on CUDA, gloo on the CPU) or ``"gloo"`` on CUDA.
 
     A collective that waits :data:`DEFAULT_TIMEOUT_S` for a rank fails the run.
     """
-    device_type = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu")).type
+    device_type = torch.device(device or "cuda").type
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"setup_device(..., device='{device or 'cuda'}'): CUDA is not available; pass device='cpu' "
+                           f"to run on the CPU")
     launched = "WORLD_SIZE" in os.environ and "RANK" in os.environ
     if not launched:
         if num_devices not in (None, 1):
@@ -88,9 +92,6 @@ def setup_device(num_devices: Optional[int] = None, device: Optional[str] = None
                              f"launcher: {launch_command(num_devices)}")
         device_config.device = torch.device(device_type)
         return device_config
-    if device_type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("setup_device: device='cuda' but torch.cuda.is_available() is false; pass device='cpu'")
-
     world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))

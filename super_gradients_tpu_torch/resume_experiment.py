@@ -2,7 +2,8 @@
 ``python -m super_gradients_tpu_torch.resume_experiment --experiment_name=<name>``
 
 Without a ``recipe.json`` in the run, ``--config-name`` names a recipe to compose
-again with ``training_hyperparams.resume=True``.
+again with ``training_hyperparams.resume=True``. The run continues on the device its recipe
+names (the GPU where it names none).
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ def main(argv=None):
     from super_gradients_tpu_torch.parallel.mesh import setup_device
     from super_gradients_tpu_torch.training.trainer import Trainer
 
-    setup_device()
     try:
         return Trainer.resume_experiment(args.experiment_name, ckpt_root_dir=args.ckpt_root_dir, run_id=args.run_id)
     except (FileNotFoundError, ValueError):
@@ -36,6 +36,7 @@ def main(argv=None):
     cfg["experiment_name"] = args.experiment_name
     if args.ckpt_root_dir:
         cfg["ckpt_root_dir"] = args.ckpt_root_dir
+    setup_device(device=cfg.get("device") or "cuda")
     return Trainer.train_from_config(cfg)
 
 

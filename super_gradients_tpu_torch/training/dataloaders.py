@@ -20,7 +20,9 @@ process.
 ``segmentation_train`` / ``segmentation_val`` (paired image and mask folders, also
 registered as ``cityscapes_stdc_seg50_train`` / ``_val``, as in the JAX package),
 ``cityscapes_train`` / ``cityscapes_val`` and ``cityscapes_{seg50, seg75, ddrnet,
-regseg48, segformer}_{train, val}`` (the Cityscapes layout). The COCO detection datasets
+regseg48, segformer}_{train, val}`` (the Cityscapes layout), ``coco_segmentation_{train, val}``,
+``pascal_voc_segmentation_{train, val}``, ``mapillary_{train, val}`` and
+``supervisely_persons_{train, val}`` (``training/datasets_segmentation.py``). The COCO detection datasets
 end in ``DetectionStandardize``, so they yield uint8 images and ``max_value`` for the
 trainer to standardize on the device; the pose, classification and segmentation
 datasets yield float32 images.
@@ -47,6 +49,12 @@ from super_gradients_tpu_torch.training.datasets import (
     SegmentationDataset,
 )
 from super_gradients_tpu_torch.training.datasets_roboflow import RoboflowDetectionDataset
+from super_gradients_tpu_torch.training.datasets_segmentation import (
+    CoCoSegmentationDataset,
+    MapillaryDataset,
+    PascalVOC2012SegmentationDataset,
+    SuperviselyPersonsDataset,
+)
 from super_gradients_tpu_torch.training.transforms.detection import (
     DetectionHorizontalFlip,
     DetectionHSV,
@@ -675,3 +683,57 @@ def cityscapes_train(root: str, batch_size: int = 8, image_size=(512, 1024), **k
 @register_dataloader("cityscapes_val")
 def cityscapes_val(root: str, batch_size: int = 8, image_size=(512, 1024), **kw) -> DataLoader:
     return _cityscapes_loader(root, "val", batch_size, image_size, False, kw)
+
+
+# the COCO, VOC, Mapillary and Supervisely segmentation loaders: a train loader shuffles and
+# drops its last partial batch, a val loader does neither (the JAX package's arguments)
+def _seg_loader(dataset, batch_size: int, train: bool, kw: Dict) -> DataLoader:
+    return DataLoader(dataset, batch_size=batch_size, shuffle=train, drop_last=train, **_loader_kwargs(kw))
+
+
+@register_dataloader("coco_segmentation_train")
+def coco_segmentation_train(data_dir: str, batch_size: int = 16, image_size=(512, 512), **kw) -> DataLoader:
+    ds = CoCoSegmentationDataset(data_dir, subdir="images/train2017", json_file="instances_train2017.json",
+                                 image_size=tuple(image_size))
+    return _seg_loader(ds, batch_size, True, kw)
+
+
+@register_dataloader("coco_segmentation_val")
+def coco_segmentation_val(data_dir: str, batch_size: int = 16, image_size=(512, 512), **kw) -> DataLoader:
+    ds = CoCoSegmentationDataset(data_dir, subdir="images/val2017", json_file="instances_val2017.json",
+                                 image_size=tuple(image_size))
+    return _seg_loader(ds, batch_size, False, kw)
+
+
+@register_dataloader("pascal_voc_segmentation_train")
+def pascal_voc_segmentation_train(root: str, batch_size: int = 16, image_size=(512, 512), **kw) -> DataLoader:
+    return _seg_loader(PascalVOC2012SegmentationDataset(root, "train", tuple(image_size)), batch_size, True, kw)
+
+
+@register_dataloader("pascal_voc_segmentation_val")
+def pascal_voc_segmentation_val(root: str, batch_size: int = 16, image_size=(512, 512), **kw) -> DataLoader:
+    return _seg_loader(PascalVOC2012SegmentationDataset(root, "val", tuple(image_size)), batch_size, False, kw)
+
+
+@register_dataloader("mapillary_train")
+def mapillary_train(root_dir: str, batch_size: int = 8, image_size=(512, 512), **kw) -> DataLoader:
+    ds = MapillaryDataset(root_dir, samples_sub_directory="training/images",
+                          targets_sub_directory="training/v1.2/labels", image_size=tuple(image_size))
+    return _seg_loader(ds, batch_size, True, kw)
+
+
+@register_dataloader("mapillary_val")
+def mapillary_val(root_dir: str, batch_size: int = 8, image_size=(512, 512), **kw) -> DataLoader:
+    ds = MapillaryDataset(root_dir, samples_sub_directory="validation/images",
+                          targets_sub_directory="validation/v1.2/labels", image_size=tuple(image_size))
+    return _seg_loader(ds, batch_size, False, kw)
+
+
+@register_dataloader("supervisely_persons_train")
+def supervisely_persons_train(root_dir: str, batch_size: int = 16, image_size=(480, 320), **kw) -> DataLoader:
+    return _seg_loader(SuperviselyPersonsDataset(root_dir, "train.csv", tuple(image_size)), batch_size, True, kw)
+
+
+@register_dataloader("supervisely_persons_val")
+def supervisely_persons_val(root_dir: str, batch_size: int = 16, image_size=(480, 320), **kw) -> DataLoader:
+    return _seg_loader(SuperviselyPersonsDataset(root_dir, "val.csv", tuple(image_size)), batch_size, False, kw)

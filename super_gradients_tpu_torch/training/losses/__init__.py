@@ -1,6 +1,7 @@
 """Loss registry surface of the port (counterpart of
 ``super_gradients_tpu/training/losses/__init__.py``; the classification and segmentation
-losses, PPYoloELoss, YoloXDetectionLoss, YoloNASPoseLoss and SSDLoss so far)."""
+losses, PPYoloELoss, YoloXDetectionLoss, YoloNASPoseLoss and SSDLoss so far; the segmentation
+ones include ShelfNet's two and MaskAttentionLoss)."""
 
 from super_gradients_tpu_torch.common.registry import LOSSES
 from super_gradients_tpu_torch.training.losses.classification_losses import (  # noqa: F401
@@ -17,8 +18,11 @@ from super_gradients_tpu_torch.training.losses.segmentation_losses import (  # n
     BinaryDiceLoss,
     DiceCEEdgeLoss,
     DiceLoss,
+    MaskAttentionLoss,
     OhemCELoss,
     SegCrossEntropyLoss,
+    ShelfNetOHEMLoss,
+    ShelfNetSemanticEncodingLoss,
     STDCLoss,
 )
 from super_gradients_tpu_torch.training.losses.yolo_nas_pose_loss import YoloNASPoseLoss  # noqa: F401

@@ -13,6 +13,11 @@ OHEM is batch-global, as in JAX: the valid pixels' losses are sorted in descendi
 where the ``num_mining``-th exceeds ``-log(threshold)`` every pixel above it is kept, else
 the top ``num_mining``. ``DiceCEEdgeLoss`` is the JAX package's: CE and soft dice on the
 main map and weighted CE on the auxiliary maps, with no edge term.
+
+ShelfNet's losses: ``ShelfNetOHEMLoss`` sums the OHEM of every head; ``ShelfNetSemanticEncodingLoss``
+takes HW's ``(main, se [B, C], aux)``: CE on both maps and the BCE of ``se`` against each image's
+class-presence indicator. ``MaskAttentionLoss`` weighs a per-pixel criterion's mean over the
+valid pixels and its mean over a mask's foreground.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from super_gradients_tpu_torch.common.registry import register_loss
-from super_gradients_tpu_torch.parallel.collectives import global_normalizer, refuse_across_ranks
+from super_gradients_tpu_torch.parallel.collectives import global_mean, global_normalizer, refuse_across_ranks
 
 
 def _fp32(x: torch.Tensor) -> torch.Tensor:
@@ -232,3 +237,75 @@ class BCEDiceLoss:
         dice, _ = BinaryDiceLoss()(z[:, None], t)
         loss = self.loss_weights[0] * bce + self.loss_weights[1] * dice
         return loss, {"bce": bce, "dice": dice}
+
+
+@register_loss("ShelfNetOHEMLoss")
+class ShelfNetOHEMLoss(OhemCELoss):
+    """:class:`OhemCELoss` of each ShelfNet head, summed; each head's logged as ``ohem_{i}``."""
+
+    def __init__(self, threshold: float = 0.7, mining_percent: float = 1e-4, ignore_lb: int = 255):
+        super().__init__(threshold=threshold, mining_percent=mining_percent, ignore_lb=ignore_lb)
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        outputs = outputs if isinstance(outputs, (tuple, list)) else (outputs,)
+        losses = [super(ShelfNetOHEMLoss, self).__call__(o, targets)[0] for o in outputs]
+        return sum(losses), {f"ohem_{i}": loss for i, loss in enumerate(losses)}
+
+
+@register_loss("ShelfNetSemanticEncodingLoss")
+class ShelfNetSemanticEncodingLoss:
+    """``CE(main) + aux_weight * CE(aux) + se_weight * BCE(sigmoid(se), presence)`` on
+    ``(main [B, C, H, W], se [B, C], aux [B, C, H, W])``: ``presence[b, c]`` is 1 where a valid
+    pixel of image ``b`` has class ``c`` (a class id clipped into ``[0, nclass)``), and the BCE
+    is a mean over ``B x C`` with ``1e-12`` inside its logs."""
+
+    def __init__(self, se_weight: float = 0.2, nclass: int = 21, aux_weight: float = 0.4, ignore_index: int = -1):
+        self.se_weight, self.nclass, self.aux_weight = se_weight, nclass, aux_weight
+        self.ignore_index = ignore_index
+        self.ce = SegCrossEntropyLoss(ignore_index)
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, Dict]:
+        pred1, se_pred, pred2 = outputs
+        loss1, _ = self.ce(pred1, targets)
+        loss2, _ = self.ce(pred2, targets)
+        b = targets.shape[0]
+        se = _fp32(se_pred)
+        classes = targets.clamp(0, self.nclass - 1).long().reshape(b, -1)
+        valid = _valid_mask(targets, self.ignore_index).reshape(b, -1).to(se.dtype)
+        presence = (se.new_zeros((b, self.nclass)).scatter_add_(1, classes, valid) > 0).to(se.dtype)
+        p = torch.sigmoid(se)
+        loss3 = global_mean(-(presence * torch.log(p + 1e-12) + (1 - presence) * torch.log(1 - p + 1e-12)))
+        total = loss1 + self.aux_weight * loss2 + self.se_weight * loss3
+        return total, {"ce_main": loss1, "ce_aux": loss2, "se_bce": loss3}
+
+
+@register_loss("MaskAttentionLoss")
+class MaskAttentionLoss:
+    """``w0 * mean(per-pixel loss over valid pixels) + w1 * mean(per-pixel loss over the mask's
+    valid foreground)``, each mean's count clamped at 1 (a mask with no foreground adds 0).
+
+    ``criterion(logits, targets)`` returns the unreduced ``[B, H, W]`` loss
+    (:func:`pixel_cross_entropy` by default). The mask comes as ``mask=`` or packed with the
+    targets as ``(targets, mask)``, ``[B, H, W]`` or with a trailing channel ``[B, H, W, 1]``."""
+
+    def __init__(self, criterion=None, loss_weights: Sequence[float] = (1.0, 1.0), ignore_index: int = 255):
+        if len(loss_weights) != 2:
+            raise ValueError(f"loss_weights must have 2 values, found {len(loss_weights)}")
+        if loss_weights[1] <= 0:
+            raise ValueError("mask loss weight must be positive; use the bare criterion otherwise")
+        self.criterion = criterion or (lambda logits, t: pixel_cross_entropy(logits, t, ignore_index))
+        self.loss_weights = tuple(loss_weights)
+        self.ignore_index = ignore_index
+
+    def __call__(self, outputs, targets, mask=None) -> Tuple[torch.Tensor, Dict]:
+        if mask is None:
+            targets, mask = targets
+        per_pixel = self.criterion(_main(outputs), targets)
+        if mask.dim() == per_pixel.dim() + 1:
+            mask = mask[..., 0]
+        valid = _valid_mask(targets, self.ignore_index).to(per_pixel.dtype)
+        base = per_pixel.sum() / global_normalizer(valid.sum())
+        fg = mask.to(per_pixel.dtype) * valid
+        mask_term = (per_pixel * fg).sum() / global_normalizer(fg.sum())
+        loss = self.loss_weights[0] * base + self.loss_weights[1] * mask_term
+        return loss, {"loss_base": base, "loss_mask": mask_term}

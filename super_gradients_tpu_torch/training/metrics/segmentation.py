@@ -5,8 +5,9 @@ once, in ``compute``. The JAX package builds the matrix as a float32 one-hot mat
 stops counting exactly once a cell passes 2**24 pixels; here each batch's pixels are
 counted into int64 cells with ``scatter_add_`` (``bincount`` would read its size back to
 the host): equal to JAX's below 2**24, exact above it. A pixel whose target is
-``ignore_index`` or ``>= num_classes`` is not counted. IoU and Dice average over the
-classes present in the targets.
+``ignore_index`` or ``>= num_classes``, or whose prediction is ``>= num_classes`` (a metric of
+fewer classes than the model's, as JAX's one-hot of such a prediction is all zeros), is not
+counted. IoU and Dice average over the classes present in the targets.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from super_gradients_tpu_torch.training.metrics.base import Metric
 def confusion_matrix(preds: torch.Tensor, targets: torch.Tensor, num_classes: int, ignore_index: int) -> torch.Tensor:
     """int64 ``[C, C]`` counts of (target, prediction) pairs over the valid pixels."""
     targets = targets.to(preds.device).long()
-    valid = (targets != ignore_index) & (targets >= 0) & (targets < num_classes)
+    valid = (targets != ignore_index) & (targets >= 0) & (targets < num_classes) & (preds < num_classes)
     # invalid pixels go to one bin past the matrix, dropped below
     cells = torch.where(valid, targets * num_classes + preds.long(), num_classes * num_classes).reshape(-1)
     counts = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64, device=preds.device)

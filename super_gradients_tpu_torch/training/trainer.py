@@ -800,8 +800,12 @@ class Trainer:
     def evaluate_checkpoint(cls, experiment_name: str, ckpt_root_dir: Optional[str] = None,
                             ckpt_name: str = "ckpt_best", run_id: Optional[str] = None) -> Dict[str, float]:
         """Rebuild a recipe-launched run's model and val loader from its ``recipe.json``,
-        load the named checkpoint (its EMA weights when it has them) and validate."""
+        load the named checkpoint (its EMA weights when it has them) and validate, on the
+        device the recipe names (the GPU where it names none)."""
+        from super_gradients_tpu_torch.parallel import mesh
+
         _, ckpt_dir, cfg = cls._load_run_recipe(experiment_name, ckpt_root_dir, run_id)
+        mesh.setup_device(device=cfg.get("device") or "cuda")
         model = cls._model_from_cfg(cfg)
         ckpt_utils.load_checkpoint_into_model(model, ckpt_utils.checkpoint_path(ckpt_dir, ckpt_name))
         valid_loader = cls._loader_from_cfg(cfg, "val")
@@ -810,7 +814,10 @@ class Trainer:
 
     @classmethod
     def resume_experiment(cls, experiment_name: str, ckpt_root_dir: Optional[str] = None, run_id: Optional[str] = None):
-        """Continue a recipe-launched run from its ``recipe.json`` and latest checkpoint."""
+        """Continue a recipe-launched run from its ``recipe.json`` and latest checkpoint, on
+        the device the recipe names (the GPU where it names none)."""
+        from super_gradients_tpu_torch.parallel import mesh
+
         run_id, _, cfg = cls._load_run_recipe(experiment_name, ckpt_root_dir, run_id)
         if "architecture" not in cfg or cfg.get("train_dataloader") is None and "dataset_params" not in cfg:
             raise ValueError(
@@ -818,6 +825,7 @@ class Trainer:
                 "Trainer.train() directly); resume by calling train() again with "
                 "training_params={'resume': True, 'run_id': run_id}"
             )
+        mesh.setup_device(device=cfg.get("device") or "cuda")
         cfg.setdefault("training_hyperparams", {})
         cfg["training_hyperparams"]["resume"] = True
         cfg["training_hyperparams"]["run_id"] = run_id

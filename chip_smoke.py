@@ -211,7 +211,22 @@ result) without CUDA or without the port's sources next to it. Phases:
    COCO-layout tree (polygons, a compressed RLE, an uncompressed-RLE crowd, overlapping
    instances) and of ``supervisely_unet`` on a seeded csv tree (``tools/segmentation_synthetic.py``),
    each at its own image size and batch (b32 at 512x512, b32 at 480x320), bf16, 2 loader workers,
-   one epoch of two steps, and ``evaluate_checkpoint`` within 1e-6 of a direct ``Trainer.evaluate``.
+   one epoch of two steps, and ``evaluate_checkpoint`` within 1e-6 of a direct ``Trainer.evaluate``;
+21. the rest of the classification zoo at ImageNet's 224, 1000 classes, seed 0, launching no kernel
+   (K1 must count 0 here): (a) EfficientNet-B0, RegNetY800, RepVGG-A0 (and its deploy form after
+   ``fuse_repvgg``), ViT-Base/16, DenseNet-121 and BEiT-Base, the BN statistics set on the request (a
+   random-init BN net calibrated on noise is chaotic) and each head scaled to a logit std of 2 as in
+   phase 14: fp32 ``predict()`` (TF32 off) of four seeded images on the card and on the CPU, top-1
+   equal and top-5 probabilities within ``CLS_CONF_TOL``, the logits' distances to fp64 printed, and
+   the fp32 forward at b32 timed; (b) ``imagenet_efficientnet``'s bf16 step (EfficientNet-B0, RMSProp
+   with momentum 0.9 and weight decay 1e-4 off bias and BN, EMA, label smoothing 0.1) at b128 and
+   ``imagenet_vit_base``'s (ViT-Base, SGD, ``clip_grad_norm`` 1.0) at b64, by part, with idle share
+   and peak memory; (c) RMSProp and Lion over EfficientNet-B0's parameters, 5 steps of seeded
+   gradients at a changing LR in fp64 on the card and on the CPU, within ``CLS_ZOO_OPT_TOL``, and the
+   fp32 step timed; (d) ``train_from_recipe`` of ``imagenet_efficientnet`` and ``imagenet_vit_base``
+   on phase 14(c)'s ImageFolder tree (10 classes), bf16, one epoch of two steps of b100, validated:
+   losses and metrics finite, every parameter changed, ``evaluate_checkpoint`` within 1e-6 of a direct
+   ``Trainer.evaluate`` with a planted fault beyond it.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -1060,8 +1075,9 @@ def check_evaluate_checkpoint(torch, cfg, experiment, ckpt_dir, ckpt_root, tag, 
     """evaluate_checkpoint(ckpt_best) of a recipe run held to a direct Trainer.evaluate of
     models.get(checkpoint_path=ckpt_best.pth) on the recipe's val loader (fp32, within
     RECIPE_EVAL_TOL), and a planted fault beyond it: the live weights where the EMA's belong
-    (``fault="ema"``) or a fresh model's BN statistics (``fault="bn"``, for runs whose EMA
-    equals the live weights). Returns (the evaluated metrics, the checkpoint's epoch)."""
+    (``fault="ema"``), a fresh model's BN statistics (``fault="bn"``, for runs whose EMA
+    equals the live weights) or a fresh model's weights (``fault="fresh"``, for a model without
+    BN or EMA). Returns (the evaluated metrics, the checkpoint's epoch)."""
     from super_gradients_tpu_torch import models
     from super_gradients_tpu_torch.training import Trainer
 
@@ -1079,6 +1095,9 @@ def check_evaluate_checkpoint(torch, cfg, experiment, ckpt_dir, ckpt_root, tag, 
     if fault == "ema":
         what = "live weights for the EMA's"
         model.net.load_state_dict(best["net"])
+    elif fault == "fresh":
+        what = "a fresh model's weights"
+        model.net.load_state_dict(models.get(cfg["architecture"], seed=1, **build).net.state_dict())
     else:
         what = "a fresh model's BN statistics"
         fresh = models.get(cfg["architecture"], seed=1, **build)
@@ -4264,6 +4283,279 @@ def phase_shelf_recipes(torch, np, root):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------- phase 21: the rest of the classification zoo, RMSProp and Lion
+
+CLS_ZOO_MODELS = ("efficientnet_b0", "regnetY800", "repvgg_a0", "vit_base", "densenet121", "beit_base_patch16_224")
+CLS_ZOO_FORWARD_B = 32  # the fp32 forward timed in 21(a)
+CLS_ZOO_STEPS = (("imagenet_efficientnet", "efficientnet_b0", 128), ("imagenet_vit_base", "vit_base", 64))
+CLS_ZOO_OPT_STEPS = 5  # 21(c)'s steps on identical gradients
+CLS_ZOO_OPT_TOL = 1e-12  # |card - CPU| over max |parameter| of 21(c)'s fp64 runs
+CLS_ZOO_RECIPES = ("imagenet_efficientnet", "imagenet_vit_base")
+CLS_ZOO_RECIPE_BATCH = 100  # 21(d)'s batch: phase 14(c)'s 200 train PNGs make an epoch of two steps
+
+
+def classifier_head(net):
+    """The last ``Linear`` of a classification net: its head in every family of phase 21."""
+    import torch
+
+    return [m for m in net.modules() if isinstance(m, torch.nn.Linear)][-1]
+
+
+def phase_cls_zoo(torch, np, nms_exact, root, imagenet_root):
+    """The rest of the classification zoo at full width (ImageNet's 224, 1000 classes, seed 0),
+    RMSProp and Lion, launching no kernel (K1 must count 0 here): (a) fp32 predict GPU vs CPU and
+    the fp32 forward at b32, (b) the imagenet_efficientnet and imagenet_vit_base bf16 steps by part,
+    (c) RMSProp and Lion on the card against the CPU, (d) train_from_recipe of the two recipes on
+    phase 14(c)'s ImageFolder tree at ``imagenet_root``."""
+    launches_before = nms_exact.exact_nms_keep.launches
+    t_phase = time.perf_counter()
+    for name in CLS_ZOO_MODELS:
+        phase_cls_zoo_predict(torch, np, name)
+    print(f"[21a] seconds {time.perf_counter() - t_phase:.1f}")
+    for recipe, name, b in CLS_ZOO_STEPS:
+        phase_cls_zoo_step(torch, np, recipe, name, b)
+    print(f"[21b] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_cls_zoo_optimizers(torch, np)
+    print(f"[21c] seconds {time.perf_counter() - t_phase:.1f}")
+    phase_cls_zoo_recipes(torch, np, root, imagenet_root)
+    launched = nms_exact.exact_nms_keep.launches - launches_before
+    check(launched == 0, f"phase 21 launched K1 {launched} times; classification has no NMS")
+    print(f"[21] phase seconds {time.perf_counter() - t_phase:.1f}; K1 launches in phase 21: {launched}")
+
+
+def card_copy(cpu_model):
+    """A copy of ``cpu_model`` (its weights, processing and class names) on the card."""
+    return type(cpu_model)(name=cpu_model.name, net=copy.deepcopy(cpu_model.net), num_classes=cpu_model.num_classes,
+                           config=cpu_model.config, processing=cpu_model._processing,
+                           class_names=cpu_model._class_names, device="cuda")
+
+
+def calibrate_on(torch, net, x):
+    """Every BN's running statistics from one eval-mode forward of ``x`` (``models.get``'s
+    calibration, on a given batch in place of uniform noise)."""
+
+    def set_stats(bn, inputs):
+        bn.running_mean.copy_(inputs[0].mean(dim=(0, 2, 3)))
+        bn.running_var.copy_(inputs[0].var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(set_stats) for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    try:
+        with torch.no_grad():
+            net.eval()(x)
+    finally:
+        for hook in hooks:
+            hook.remove()
+
+
+def phase_cls_zoo_predict(torch, np, name):
+    """(a) ``name`` on the card and on the CPU from one seed, the BN statistics set on the
+    standardized request itself (calibrated on uniform noise, the random-init BN nets amplify an
+    fp32 rounding difference ~2x a block: EfficientNet-B0's CPU logits land ~15% of their std from
+    fp64, which no top-1 gate survives) and its head scaled (the same factor on both) to a logit std
+    of 2 on the request, as in phase 14: fp32 ``predict()`` of four seeded images, TF32 off, top-1
+    equal and top-5 probabilities within ``CLS_CONF_TOL``; the logits' distances to an fp64 CPU run
+    printed; the fp32 forward at b32 timed. RepVGG-A0 also in its deploy form (``fuse_repvgg``) on
+    the card against the unfused CPU model."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.models.classification.repvgg import fuse_repvgg
+
+    t0 = time.perf_counter()
+    cpu_model = models.get(name, num_classes=1000, seed=0, device="cpu")
+    images = request_images(np, 21)
+    _, batches, _ = cpu_model._prep_host_batches(images, 4)
+    x = torch.from_numpy(batches[0]).permute(0, 3, 1, 2).contiguous()
+    calibrate_on(torch, cpu_model.net, x)
+    with torch.inference_mode():
+        std = float(cpu_model.net(x).std())
+    with torch.no_grad():
+        head = classifier_head(cpu_model.net)
+        head.weight.mul_(2.0 / std)
+        head.bias.mul_(2.0 / std)
+    cpu_model._deploy_nets.clear()
+    model = card_copy(cpu_model)
+    variants = [("", model)]
+    if name.startswith("repvgg"):
+        fused = card_copy(cpu_model)
+        fuse_repvgg(fused.net)
+        variants.append((" fused", fused))
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = []
+        for tag, m in variants:
+            gpu = list(m.predict(images))
+            with torch.inference_mode():
+                g_logits = m._deploy_net(False, False)(x.cuda()).double().cpu()
+            results.append((tag, gpu, g_logits))
+        net = model._deploy_net(False, False)
+        batch = torch.randn((CLS_ZOO_FORWARD_B, 3, 224, 224), generator=torch.Generator().manual_seed(21)).cuda()
+        batch = batch.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            forward_ms = cuda_ms(lambda: net(batch), iters=10)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    cpu = list(cpu_model.predict(images))
+    with torch.inference_mode():
+        c_logits = cpu_model.net(x).double()
+        r_logits = copy.deepcopy(cpu_model.net).double()(x.double())
+    e_cpu = float((c_logits - r_logits).abs().max())
+    for tag, gpu, g_logits in results:
+        top1 = [(g.prediction, c.prediction) for g, c in zip(gpu, cpu)]
+        conf_err = max(float(np.abs(g.confidence - c.confidence).max()) for g, c in zip(gpu, cpu))
+        e_gpu = float((g_logits - r_logits).abs().max())
+        print(f"[21a] {name}{tag} 1000 classes 224 fp32 predict GPU vs CPU (TF32 off; BN statistics set on the "
+              f"request; head scaled by {2.0 / std:.3e}), "
+              f"4-image request: top-1 {top1}; top-5 probabilities |GPU - CPU| max {conf_err:.3e} (limit "
+              f"{CLS_CONF_TOL}); logits |GPU - fp64| max {e_gpu:.3e}, |CPU - fp64| max {e_cpu:.3e} (|logit| max "
+              f"{float(r_logits.abs().max()):.2f})")
+        check(len(gpu) == 4 and all(g.labels.shape == (5,) and np.isfinite(g.confidence).all() for g in gpu),
+              f"{name}{tag} predict: a result is not 5 finite labels")
+        check(all(a == b for a, b in top1), f"{name}{tag}: GPU and CPU top-1 differ: {top1}")
+        check(conf_err <= CLS_CONF_TOL, f"{name}{tag}: top-5 probabilities differ by {conf_err} between GPU and CPU")
+    print(f"[21a] {name} fp32 forward b{CLS_ZOO_FORWARD_B} at 224 (TF32 off, channels_last): {forward_ms:.2f} ms a "
+          f"batch (CUDA events), {CLS_ZOO_FORWARD_B * 1e3 / forward_ms:.1f} img/s; {time.perf_counter() - t0:.1f} s")
+    del model, cpu_model, variants, results, net, batch
+    torch.cuda.empty_cache()
+
+
+def phase_cls_zoo_step(torch, np, recipe, name, b):
+    """(b) ``recipe``'s bf16 train step of ``name`` (1000 classes, 224) at ``b`` by part (forward,
+    loss, backward, optimizer + EMA), as ``Trainer.prepare`` builds it from the recipe's
+    hyperparameters, with its idle share and peak memory."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer
+
+    tp = dict(config.load_recipe(recipe)["training_hyperparams"])
+    optimizer, ema, clip = {"imagenet_efficientnet": ("RMSProp", True, None),
+                            "imagenet_vit_base": ("SGD", False, 1.0)}[recipe]
+    check((tp["optimizer"], bool(tp.get("ema")), tp.get("clip_grad_norm")) == (optimizer, ema, clip)
+          and tp["optimizer_params"] == {"momentum": 0.9, "weight_decay": 1e-4} and tp["mixed_precision"]
+          and tp["zero_weight_decay_on_bias_and_bn"] and tp["criterion_params"] == {"smooth_eps": 0.1},
+          f"the {recipe} regime changed: {tp}")
+    t0 = time.perf_counter()
+    model = models.get(name, num_classes=1000, seed=0, device="cuda")
+    step = Trainer(f"chip_smoke_{recipe}_timing").prepare(model, tp, steps_per_epoch=100)
+    build_s = time.perf_counter() - t0
+    check(type(step.state.optimizer).__name__ == optimizer, f"{recipe}: {type(step.state.optimizer)}")
+    images = torch.randn((b, 3, 224, 224), generator=torch.Generator().manual_seed(b)).cuda()
+    images = images.contiguous(memory_format=torch.channels_last)
+    targets = torch.randint(0, 1000, (b,), generator=torch.Generator().manual_seed(b + 1)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = step_runner(step, images, targets)
+    t0 = time.perf_counter()
+    ms = time_by_part(torch, run)
+    timed_s = time.perf_counter() - t0
+    prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+    busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+    loss = run()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), f"{recipe} b{b} bf16 train loss not finite")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[21b] {recipe} step ({name}, {optimizer}, EMA {ema}, clip {clip}, label smoothing 0.1) bf16 b{b} at "
+          f"224: {ms['step']:.2f} ms/step, {b * 1e3 / ms['step']:.1f} img/s (CUDA events); forward "
+          f"{ms['forward']:.2f}, loss {ms['loss']:.2f}, backward {ms['backward']:.2f}, optimizer + EMA "
+          f"{ms['update']:.2f} ms; profiled (device activity only): "
+          f"wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}; peak "
+          f"memory {peak:.2f} GiB; model and step built in {build_s:.1f} s, 3 warmup + 10 timed steps {timed_s:.1f} s")
+    del model, step, images, targets, loss, prof_events
+    torch.cuda.empty_cache()
+
+
+def phase_cls_zoo_optimizers(torch, np):
+    """(c) RMSProp (momentum 0.9, weight decay 1e-4 off the 1-D tensors) and Lion (weight decay
+    0.1, the same mask) over EfficientNet-B0's parameters, CLS_ZOO_OPT_STEPS steps of seeded
+    gradients at a changing LR, in fp64 on the card and on the CPU: |card - CPU| over the largest
+    |parameter| within CLS_ZOO_OPT_TOL; then the fp32 step on the card timed."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training.optimizers import build_optimizer
+
+    source = dict(models.get("efficientnet_b0", num_classes=1000, seed=0, device="cpu").net.named_parameters())
+    rng = np.random.RandomState(21)
+    grads = [{k: torch.from_numpy(rng.randn(*v.shape)) * scale for k, v in source.items()}
+             for scale in (0.05, 3.0, 0.1, 6.0, 0.5)[:CLS_ZOO_OPT_STEPS]]
+    lrs = (0.1, 0.05, 0.2, 0.01, 0.3)[:CLS_ZOO_OPT_STEPS]
+    for name, params, lr_scale in (("RMSProp", {"momentum": 0.9, "weight_decay": 1e-4}, 1e-2),
+                                   ("Lion", {"weight_decay": 0.1}, 1e-3)):
+        finals = {}
+        for device in ("cuda", "cpu"):
+            tensors = {k: torch.nn.Parameter(v.detach().double().to(device)) for k, v in source.items()}
+            opt = build_optimizer(name, list(tensors.items()), params, zero_weight_decay_on_bias_and_bn=True)
+            for lr, g in zip(lrs, grads):
+                for group in opt.param_groups:
+                    group["lr"] = lr * lr_scale * group["lr_mult"]
+                for k, t in tensors.items():
+                    t.grad = g[k].to(device)
+                opt.step()
+            finals[device] = {k: t.detach().cpu() for k, t in tensors.items()}
+        scale = max(float(v.abs().max()) for v in finals["cpu"].values())
+        err = max(float((finals["cuda"][k] - finals["cpu"][k]).abs().max()) for k in source) / scale
+        moved = max(float((finals["cpu"][k] - source[k].detach().double()).abs().max()) for k in source)
+        tensors = {k: torch.nn.Parameter(v.detach().float().cuda()) for k, v in source.items()}
+        opt = build_optimizer(name, list(tensors.items()), params, zero_weight_decay_on_bias_and_bn=True)
+        for group in opt.param_groups:
+            group["lr"] = 1e-3 * group["lr_mult"]
+        for k, t in tensors.items():
+            t.grad = grads[0][k].float().cuda()
+        step_ms = cuda_ms(opt.step, iters=20)
+        n = sum(v.numel() for v in source.values())
+        print(f"[21c] {name} {params} over EfficientNet-B0's {n} parameters, {len(lrs)} steps at LRs "
+              f"{[lr * lr_scale for lr in lrs]}, fp64: |card - CPU| / max |parameter| {err:.3e} (limit "
+              f"{CLS_ZOO_OPT_TOL}), the parameters moved up to {moved:.3e}; fp32 step on the card {step_ms:.3f} ms "
+              f"(CUDA events, foreach ops)")
+        check(err <= CLS_ZOO_OPT_TOL, f"{name} on the card differs from the CPU by {err}")
+        check(moved > 1e-4, f"{name} left the parameters where they were")
+        del tensors, opt
+    torch.cuda.empty_cache()
+
+
+def phase_cls_zoo_recipes(torch, np, root, imagenet_root):
+    """(d) train_from_recipe of imagenet_efficientnet (RMSProp, EMA) and imagenet_vit_base (SGD,
+    clip_grad_norm) at their published widths on phase 14(c)'s ImageFolder tree (10 classes, 200
+    train and 40 val PNGs read at 224), bf16, one epoch of two steps of b100 (the warmup cut to 0
+    epochs, where it would hold the LR at its start), 8 workers, validated: losses and metrics
+    finite, every parameter changed; evaluate_checkpoint within 1e-6 of a direct Trainer.evaluate,
+    a planted fault beyond it."""
+    from super_gradients_tpu_torch import models, train_from_recipe
+    from super_gradients_tpu_torch.common import config
+
+    ckpt_root = os.path.join(root, "ckpt")
+    workers = min(8, os.cpu_count())
+    for recipe in CLS_ZOO_RECIPES:
+        cuts = ["epochs=1", "num_classes=10", f"batch_size={CLS_ZOO_RECIPE_BATCH}", "val_batch_size=40",
+                f"num_workers={workers}",
+                f"ckpt_root_dir={ckpt_root}", f"dataset_params.train_dataset_params.data_dir={imagenet_root}",
+                f"dataset_params.val_dataset_params.data_dir={imagenet_root}",
+                "training_hyperparams.lr_warmup_epochs=0",
+                "training_hyperparams.sg_logger_params.tensorboard=False"]
+        cfg = config.load_recipe(recipe, overrides=cuts)
+        fresh = models.get(cfg["architecture"], num_classes=10, arch_params=cfg.get("arch_params"))
+        initial = {k: v.detach().clone() for k, v in fresh.net.named_parameters()}
+        del fresh
+        t0 = time.perf_counter()
+        _, trainer = train_from_recipe.main([f"--config-name={recipe}", *cuts])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        live = dict(trainer.train_state.net.named_parameters())
+        unchanged = [k for k, v in initial.items() if torch.equal(v, live[k])]
+        history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+        tp = cfg["training_hyperparams"]
+        print(f"[21d] train_from_recipe {recipe} ({cfg['architecture']}, {tp['optimizer']}, EMA {bool(tp.get('ema'))}, "
+              f"{cfg['train_dataloader']}, bf16, {workers} workers, cuts {cuts[:4]}): {trainer.train_state.step} steps "
+              f"in {seconds:.1f} s; losses {history}; validation {json.dumps(valid)}; parameters unchanged "
+              f"{len(unchanged)} of {len(initial)}")
+        check(trainer.train_state.step == 2 and len(history) == 1 and all(np.isfinite(history)),
+              f"{recipe}: {trainer.train_state.step} steps, losses {history}")
+        check(len(valid) == 1 and set(valid[0]) == {"Accuracy", "Top5", "Loss"}
+              and np.isfinite(list(valid[0].values())).all(), f"{recipe} validation results {valid}")
+        check(not unchanged, f"{recipe}: parameters the training left unchanged: {unchanged[:5]}")
+        check_evaluate_checkpoint(torch, cfg, cfg["experiment_name"], trainer.ckpt_dir, ckpt_root, "21d",
+                                  fault="ema" if tp.get("ema") else "fresh")
+        del trainer, initial, live
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -4306,25 +4598,28 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pose_") as root:
         pose_launches, pose_err = phase_pose(torch, np, nms_exact, bbox.box_iou, root)
     max_err = max(max_err, pose_err)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as root:
-        phase_classification(torch, np, nms_exact, root)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as seg_root:  # its Cityscapes tree serves 19(c) too
-        phase_segmentation(torch, np, nms_exact, seg_root)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
-            zoo_launches, zoo_err = phase_zoo(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou), root)
-        max_err = max(max_err, zoo_err)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as root:
-            ssd_launches, ssd_err = phase_mobilenet_ssd(torch, np, nms_exact,
-                                                        matched_fraction_fn(torch, np, bbox.box_iou), root)
-        max_err = max(max_err, ssd_err)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as root:
-            ddp_launches = phase_ddp(torch, np, root, one_process_ms)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_zoo_") as root:
-            phase_seg_zoo(torch, np, nms_exact, root, cityscapes_root=os.path.join(seg_root, "cityscapes"))
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_shelfnet_") as root:
-        phase_shelfnet(torch, np, nms_exact, root)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_") as cls_root:  # its ImageFolder tree serves 21(d) too
+        phase_classification(torch, np, nms_exact, cls_root)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_") as seg_root:  # its Cityscapes tree serves 19(c) too
+            phase_segmentation(torch, np, nms_exact, seg_root)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as root:
+                zoo_launches, zoo_err = phase_zoo(torch, np, nms_exact, matched_fraction_fn(torch, np, bbox.box_iou),
+                                                  root)
+            max_err = max(max_err, zoo_err)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ssd_") as root:
+                ssd_launches, ssd_err = phase_mobilenet_ssd(torch, np, nms_exact,
+                                                            matched_fraction_fn(torch, np, bbox.box_iou), root)
+            max_err = max(max_err, ssd_err)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as root:
+                ddp_launches = phase_ddp(torch, np, root, one_process_ms)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_zoo_") as root:
+                phase_seg_zoo(torch, np, nms_exact, root, cityscapes_root=os.path.join(seg_root, "cityscapes"))
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_shelfnet_") as root:
+            phase_shelfnet(torch, np, nms_exact, root)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_zoo_") as root:
+            phase_cls_zoo(torch, np, nms_exact, root, imagenet_root=os.path.join(cls_root, "imagenet"))
 
-    print(f"chip_smoke: phases 1-20 passed in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t_script:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")

@@ -1,19 +1,22 @@
 """JAX variables -> PyTorch ``state_dict`` (the inverse of
 ``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
 YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC, PP-LiteSeg, DDRNet, RegSeg,
-UNet, SegFormer, ShelfNet and LadderNet segmentation models, MobileNet V1 / V2 / V3 and SSD).
+UNet, SegFormer, ShelfNet and LadderNet segmentation models, MobileNet V1 / V2 / V3, SSD and the
+rest of the classification zoo).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
 of those rules (``YOLO_NAS_RULES``, ``PPYOLOE_RULES``, ``YOLOX_RULES``, ``YOLO_NAS_POSE_RULES``,
 ``RESNET_RULES``, ``STDC_CLS_RULES``, ``STDC_RULES``, ``PPLITESEG_RULES``, ``DDRNET_RULES``,
 ``REGSEG_RULES``, ``unet_rules``, ``SEGFORMER_RULES``, ``SHELFNET_RULES``, ``MOBILENET_V{1,2,3}_RULES``,
-``SSD_V1_RULES``, ``SSD_LITE_V2_RULES``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout
-transforms:
+``SSD_V1_RULES``, ``SSD_LITE_V2_RULES``, the classification zoo's ``EFFICIENTNET_RULES`` ..
+``vgg_rules``, ``_GENERIC_RULES``, ``_LEAF_MAP``) and inverts the layout transforms:
 
 - conv kernel HWIO -> OIHW;
 - dense kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``, and a squeeze-excitation 1x1
-  conv ``[1, 1, in, out]`` -> the original's ``Linear`` weight ``[out, in]``;
+  conv ``[1, 1, in, out]`` -> the original's ``Linear`` weight ``[out, in]`` where the original
+  holds a ``Linear`` (MobileNetV3's ``...fc.0`` / ``...fc.2``; the other families' SE convs stay
+  convs);
 - conv-transpose kernel ``[kh, kw, in, out]`` -> ``[in, out, kh, kw]`` (YOLO-NAS's neck
   ``upsample``, ShelfNet HW's ``up_conv_list``);
 - BatchNorm ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
@@ -389,6 +392,166 @@ SSD_LITE_V2_RULES: Rules = (
 )
 
 
+# ---- the classification zoo (copies of the JAX package's rules of the same names)
+
+# EfficientNet: flat underscore-prefixed attributes
+EFFICIENTNET_RULES: Rules = (
+    (r"^stem\.conv$", "_conv_stem"),
+    (r"^stem\.bn$", "_bn0"),
+    (r"^block_(\d+)\.expand\.conv$", r"_blocks.\1._expand_conv"),
+    (r"^block_(\d+)\.expand\.bn$", r"_blocks.\1._bn0"),
+    (r"^block_(\d+)\.depthwise\.conv$", r"_blocks.\1._depthwise_conv"),
+    (r"^block_(\d+)\.depthwise\.bn$", r"_blocks.\1._bn1"),
+    (r"^block_(\d+)\.se\.fc1$", r"_blocks.\1._se_reduce"),
+    (r"^block_(\d+)\.se\.fc2$", r"_blocks.\1._se_expand"),
+    (r"^block_(\d+)\.project\.conv$", r"_blocks.\1._project_conv"),
+    (r"^block_(\d+)\.project\.bn$", r"_blocks.\1._bn2"),
+    (r"^head_conv\.conv$", "_conv_head"),
+    (r"^head_conv\.bn$", "_bn1"),
+    (r"^fc$", "_fc"),
+)
+
+# RegNet: under `net`, the blocks' layers Sequential indices; `§` guards the literal underscores
+REGNET_RULES: Rules = (
+    (r"^stem\.conv$", "net.stem.conv"),
+    (r"^stem\.bn$", "net.stem.bn"),
+    (r"^stage_(\d+)_(\d+)", r"net.stage§\1.blocks.block§\2"),
+    (r"\.conv1\.conv$", ".conv_block§1.0"),
+    (r"\.conv1\.bn$", ".conv_block§1.1"),
+    (r"\.conv2\.conv$", ".conv_block§2.0"),
+    (r"\.conv2\.bn$", ".conv_block§2.1"),
+    (r"\.conv3\.conv$", ".conv_block§3.0"),
+    (r"\.conv3\.bn$", ".conv_block§3.1"),
+    (r"\.se\.fc1$", ".se.1"),
+    (r"\.se\.fc2$", ".se.3"),
+    (r"\.shortcut\.conv$", ".shortcut.0"),
+    (r"\.shortcut\.bn$", ".shortcut.1"),
+    (r"^fc$", "net.head.fc"),
+)
+
+# classic RepVGG blocks: both branches Sequential(conv, bn), the identity a bare BN `no_conv_branch`
+REPVGG_RULES: Rules = (
+    (r"branch_3x3_conv", "branch_3x3.conv"),
+    (r"branch_3x3_bn", "branch_3x3.bn"),
+    (r"branch_1x1_conv", "branch_1x1.conv"),
+    (r"branch_1x1_bn", "branch_1x1.bn"),
+    (r"identity_bn", "no_conv_branch"),
+)
+
+VIT_RULES: Rules = (
+    (r"^patch_embed\b", "patch_embedding.proj"),
+    (r"^block_(\d+)", r"transformer.blocks.\1"),
+    (r"\.mlp_fc(\d)", r".mlp.fc\1"),
+    (r"^norm$", "pre_head_norm"),
+)
+
+BEIT_RULES: Rules = (
+    (r"^patch_embed$", "patch_embed.proj"),
+    (r"^block_(\d+)\.fc(\d)$", r"blocks.\1.mlp.fc\2"),
+    (r"^block_(\d+)", r"blocks.\1"),
+)
+
+# torchvision's DenseNet tree under `features`
+DENSENET_RULES: Rules = (
+    (r"^denseblock(\d)_layer(\d+)", r"features.denseblock\1.denselayer\2"),
+    (r"^transition(\d)_norm$", r"features.transition\1.norm"),
+    (r"^transition(\d)_conv$", r"features.transition\1.conv"),
+    (r"^conv0$", "features.conv0"),
+    (r"^norm0$", "features.norm0"),
+    (r"^norm5$", "features.norm5"),
+)
+
+SHUFFLENET_RULES: Rules = (
+    (r"^stem\.conv$", "conv1.0"),
+    (r"^stem\.bn$", "conv1.1"),
+    (r"^stage_(\d+)_(\d+)", lambda m: f"layer{int(m.group(1)) + 2}.{m.group(2)}"),
+    (r"\.b_conv1\.conv$", ".branch2.0"),
+    (r"\.b_conv1\.bn$", ".branch2.1"),
+    (r"\.b_dw\.conv$", ".branch2.3"),
+    (r"\.b_dw\.bn$", ".branch2.4"),
+    (r"\.b_conv2\.conv$", ".branch2.5"),
+    (r"\.b_conv2\.bn$", ".branch2.6"),
+    (r"\.l_dw\.conv$", ".branch1.0"),
+    (r"\.l_dw\.bn$", ".branch1.1"),
+    (r"\.l_conv\.conv$", ".branch1.2"),
+    (r"\.l_conv\.bn$", ".branch1.3"),
+    (r"^head_conv\.conv$", "conv5.0"),
+    (r"^head_conv\.bn$", "conv5.1"),
+)
+
+SENET_RULES: Rules = (
+    (r"^conv1\.conv$", "conv1"),
+    (r"^conv1\.bn$", "bn1"),
+    (r"shortcut_conv", "shortcut.0"),
+)
+
+PREACT_RULES: Rules = ((r"\.shortcut$", ".shortcut.0"),)
+
+# ResNeXt (torchvision layout) and DPN (its projection is `shortcut`)
+_BOTTLENECK_RULES: Rules = (
+    (r"^stem\.conv$", "conv1"),
+    (r"^stem\.bn$", "bn1"),
+    (r"\.conv1\.conv$", ".conv1"),
+    (r"\.conv1\.bn$", ".bn1"),
+    (r"\.conv2\.conv$", ".conv2"),
+    (r"\.conv2\.bn$", ".bn2"),
+    (r"\.conv3\.conv$", ".conv3"),
+    (r"\.conv3\.bn$", ".bn3"),
+)
+RESNEXT_RULES: Rules = _BOTTLENECK_RULES + (
+    (r"\.shortcut\.conv$", ".downsample.0"),
+    (r"\.shortcut\.bn$", ".downsample.1"),
+)
+DPN_RULES: Rules = _BOTTLENECK_RULES + (
+    (r"\.shortcut\.conv$", ".shortcut.0"),
+    (r"\.shortcut\.bn$", ".shortcut.1"),
+)
+
+# PNASNet-A: cells under layer1..layer5, the separable conv `sep_conv1.{conv1, bn1}`
+PNASNET_RULES: Rules = (
+    (r"^stem\.conv$", "conv1"),
+    (r"^stem\.bn$", "bn1"),
+    (r"^cells1_(\d+)", r"layer1.\1"),
+    (r"^down1\b", "layer2"),
+    (r"^cells2_(\d+)", r"layer3.\1"),
+    (r"^down2\b", "layer4"),
+    (r"^cells3_(\d+)", r"layer5.\1"),
+    (r"\.sep\.conv$", ".sep_conv1.conv1"),
+    (r"\.sep\.bn$", ".sep_conv1.bn1"),
+    (r"\.proj\.conv$", ".conv1"),
+    (r"\.proj\.bn$", ".bn1"),
+)
+
+# Darknet-53: one flat `modules_list`, the stages at the even slots
+_DN53_LEAF = {"conv": "Conv2d", "bn": "BatchNorm2d"}
+DARKNET53_RULES: Rules = (
+    (r"^stem\.(conv|bn)$", lambda m: f"modules_list.0.{_DN53_LEAF[m.group(1)]}"),
+    (r"^down(\d+)\.(conv|bn)$", lambda m: f"modules_list.{2 * int(m.group(1)) + 1}.{_DN53_LEAF[m.group(2)]}"),
+    (r"^stage(\d+)_(\d+)\.conv(\d)\.(conv|bn)$",
+     lambda m: f"modules_list.{2 * int(m.group(1)) + 2}.{m.group(2)}.layer{m.group(3)}.{_DN53_LEAF[m.group(4)]}"),
+    (r"^fc$", "modules_list.11.fc"),
+)
+
+# CSPDarknet-53: the YOLOX trunk's `_modules_list` without the `_backbone` prefix, the head at slot 12
+CSP_DARKNET53_RULES: Rules = tuple(
+    (pat, repl.replace("_backbone.", "")) for pat, repl in YOLOX_RULES if pat.startswith(r"^backbone")
+) + ((r"\.b(\d+)_cv", r".bottlenecks.\1.cv"), (r"^fc$", "_modules_list.12"))
+
+
+def vgg_rules(cfg: Sequence) -> Rules:
+    """VGG's features are one flat Sequential, three entries a conv (conv, BN, ReLU) and one a
+    pool: ``conv_{i}`` onto its flat index (copy of the JAX package's ``vgg_key_mapper``)."""
+    idxs, ci, flat = {}, 0, 0
+    for v in cfg:
+        if v == "M":
+            flat += 1
+        else:
+            idxs[ci] = flat
+            ci, flat = ci + 1, flat + 3
+    return ((r"^conv_(\d+)\.(conv|bn)$",
+             lambda m: f"features.{idxs[int(m.group(1))] + (0 if m.group(2) == 'conv' else 1)}"),)
+
+
 def _translate(path: Tuple[str, ...], rules: Rules) -> str:
     *parents, leaf = path
     name = ".".join(parents)
@@ -400,12 +563,12 @@ def _translate(path: Tuple[str, ...], rules: Rules) -> str:
     return f"{name}.{torch_leaf}" if name else torch_leaf
 
 
-def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...]) -> np.ndarray:
+def _to_torch_layout(value: np.ndarray, path: Tuple[str, ...], torch_name: str) -> np.ndarray:
     if path[-1] != "kernel":
         return value
     if value.ndim == 2:
         return value.T  # dense [in, out] -> Linear [out, in]
-    if len(path) >= 3 and path[-3] == "se":
+    if re.search(r"\.fc\.[02]$", torch_name):
         return value[0, 0].T  # the JAX SE's 1x1 convs [1, 1, in, out] -> the original's Linear [out, in]
     if value.ndim != 4:
         raise ValueError(f"{'/'.join(path)}: only conv and dense kernels are converted, got shape {value.shape}")
@@ -433,8 +596,9 @@ def variables_from_jax_to_torch(variables_np: Mapping, rules: Rules = YOLO_NAS_R
         for path, value in _flatten(tree).items():
             if collection == "batch_stats" and path[:-1] not in param_modules:
                 continue
-            arr = _to_torch_layout(np.asarray(value), path)
-            state_dict[_translate(path, rules)] = torch.tensor(np.ascontiguousarray(arr))
+            name = _translate(path, rules)
+            arr = _to_torch_layout(np.asarray(value), path, name[: -len(".weight")])
+            state_dict[name] = torch.tensor(np.ascontiguousarray(arr))
     for key in [k for k in state_dict if k.endswith(".running_mean")]:
         state_dict[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return state_dict

@@ -1,7 +1,5 @@
-"""Architecture registrations of the port (the ResNet, STDC classification, MobileNet,
-YOLO-NAS, PP-YOLOE, YOLOX, SSD, YOLO-NAS-POSE, STDC segmentation, PP-LiteSeg, DDRNet,
-RegSeg, UNet, SegFormer, ShelfNet and LadderNet rows of
-``super_gradients_tpu/models/all_models.py``)."""
+"""Architecture registrations of the port (every row of
+``super_gradients_tpu/models/all_models.py`` but DEKR, the pose rescoring nets and ``kd_module``)."""
 
 from __future__ import annotations
 
@@ -12,6 +10,16 @@ from super_gradients_tpu_torch.inference.processing import (
     default_imagenet_processing,
     default_segmentation_processing,
     default_yolo_nas_coco_processing,
+)
+from super_gradients_tpu_torch.models.classification import (
+    darknet,
+    dpn_pnasnet_beit,
+    efficientnet,
+    misc_models,
+    more_models,
+    regnet,
+    repvgg,
+    vit,
 )
 from super_gradients_tpu_torch.models.classification.mobilenet import MobileNetV1, MobileNetV2, MobileNetV3
 from super_gradients_tpu_torch.models.classification.resnet import CifarResNet, ResNet
@@ -622,3 +630,248 @@ def laddernet_50(num_classes=None, arch_params=None, input_hw=(512, 1024), **kw)
     nc = num_classes or 19
     cfg = LadderNetCfg(num_classes=nc)
     return _seg_spec(LadderNet(cfg), nc, input_hw, cfg)
+
+
+# ------------------------------------------------------------------ the rest of the classification zoo
+# Each registration reads the arch_params the JAX zoo's does, and no others (ROADMAP.md section 3 lists
+# where that departs from the original).
+
+
+def _efficientnet(variant, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    """EfficientNet at its published coefficients, which the ``arch_params`` ``width_coefficient``,
+    ``depth_coefficient``, ``dropout_rate`` and ``image_size`` override where they are set."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes") or 1000
+    w, d, res, drop = efficientnet.EFFICIENTNET_PARAMS[variant]
+    w = float(ap.get("width_coefficient") or w)
+    d = float(ap.get("depth_coefficient") or d)
+    drop = float(ap.get("dropout_rate") or drop)
+    res = int(ap.get("image_size") or res)
+    return _cls_spec(efficientnet.EfficientNet(num_classes=nc, width_coeff=w, depth_coeff=d, dropout=drop), nc,
+                     (res, res))
+
+
+for _variant in efficientnet.EFFICIENTNET_PARAMS:
+    register_model(f"efficientnet_{_variant}")(lambda _variant=_variant, **kw: _efficientnet(_variant, **kw))
+
+
+@register_model("CustomizedEfficientnet")
+def customized_efficientnet(num_classes=None, arch_params=None, **kw):
+    """EfficientNet of the ``arch_params`` coefficients at the ``res`` size (not ``image_size``,
+    as in the JAX zoo)."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    net = efficientnet.EfficientNet(num_classes=nc, width_coeff=ap.get("width_coefficient", 1.0),
+                                    depth_coeff=ap.get("depth_coefficient", 1.0), dropout=ap.get("dropout_rate", 0.2))
+    return _cls_spec(net, nc, (ap.get("res", 224), ap.get("res", 224)))
+
+
+def _regnety(variant, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    nc = num_classes or 1000
+    iw, slope, q, depth, gw, se = regnet.REGNETY_PARAMS[variant]
+    return _cls_spec(regnet.RegNetY(num_classes=nc, initial_width=iw, slope=slope, quantized_param=q, depth=depth,
+                                    group_width=gw, se_ratio=se), nc)
+
+
+for _variant in regnet.REGNETY_PARAMS:
+    register_model(_variant)(lambda _variant=_variant, **kw: _regnety(_variant, **kw))
+
+
+@register_model("custom_regnet")
+@register_model("custom_anynet")
+@register_model("nas_regnet")
+def custom_regnet(num_classes=None, arch_params=None, **kw):
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    net = regnet.RegNetY(num_classes=nc, initial_width=ap.get("initial_width", 24), slope=ap.get("slope", 36.44),
+                         quantized_param=ap.get("quantized_param", 2.49),
+                         depth=ap.get("network_depth", ap.get("depth", 13)), group_width=ap.get("group_width", 8),
+                         se_ratio=ap.get("se_ratio", 0.25))
+    return _cls_spec(net, nc)
+
+
+def _repvgg(variant, num_classes=None, arch_params=None, **kw) -> ModelSpec:
+    """RepVGG; the ``arch_params`` ``struct`` (blocks a stage), ``width_multiplier`` (its first and
+    last entries) and ``use_se`` (a squeeze-excitation of ratio 0.25) reshape it."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes") or 1000
+    cfg = dataclasses.replace(repvgg.REPVGG_VARIANTS[variant], num_classes=nc)
+    if ap.get("struct"):
+        cfg = dataclasses.replace(cfg, blocks_per_stage=tuple(ap["struct"]))
+    if ap.get("width_multiplier"):
+        wm = list(ap["width_multiplier"])
+        cfg = dataclasses.replace(cfg, width_a=float(wm[0]), width_b=float(wm[-1]))
+    if ap.get("use_se"):
+        cfg = dataclasses.replace(cfg, se_ratio=0.25)
+    return _cls_spec(repvgg.RepVGG(cfg), nc)
+
+
+for _variant in repvgg.REPVGG_VARIANTS:
+    register_model(_variant)(lambda _variant=_variant, **kw: _repvgg(_variant, **kw))
+
+
+@register_model("repvgg_custom")
+def repvgg_custom(num_classes=None, arch_params=None, **kw):
+    """RepVGG of the ``arch_params`` ``struct`` and ``width_multiplier`` (or ``width_a`` / ``width_b``);
+    it reads no ``use_se``, as in the JAX zoo."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    wm = ap.get("width_multiplier", [0.75, 2.5])
+    cfg = repvgg.RepVGGCfg(num_classes=nc, blocks_per_stage=tuple(ap.get("struct", (2, 4, 14, 1))),
+                           width_a=wm[0] if "width_multiplier" in ap else ap.get("width_a", 0.75),
+                           width_b=wm[-1] if "width_multiplier" in ap else ap.get("width_b", 2.5))
+    return _cls_spec(repvgg.RepVGG(cfg), nc)
+
+
+@register_model("vit_base")
+def vit_base(num_classes=None, arch_params=None, **kw):
+    """ViT-Base/16; ``arch_params`` ``patch_size`` and ``image_size`` reshape it (the position
+    embedding has a row a patch of ``image_size``)."""
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes") or 1000
+    patch = ap.get("patch_size") or 16
+    patch = int(patch[0] if isinstance(patch, (list, tuple)) else patch)
+    im = ap.get("image_size")
+    hw = (int(im[0]), int(im[1])) if isinstance(im, (list, tuple)) else ((int(im), int(im)) if im else (224, 224))
+    return _cls_spec(vit.ViT(num_classes=nc, image_size=hw, patch_size=patch, dim=768, depth=12, heads=12), nc, hw)
+
+
+@register_model("vit_large")
+def vit_large(num_classes=None, arch_params=None, **kw):
+    """ViT-Large/16 at 224; it reads neither ``patch_size`` nor ``image_size``, as in the JAX zoo."""
+    nc = num_classes or (arch_params or {}).get("num_classes") or 1000
+    return _cls_spec(vit.ViT(num_classes=nc, dim=1024, depth=24, heads=16), nc)
+
+
+@register_model("vit_huge")
+def vit_huge(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(vit.ViT(num_classes=nc, dim=1280, depth=32, heads=16), nc)
+
+
+@register_model("beit_base_patch16_224")
+def beit_base(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(dpn_pnasnet_beit.BEiT(num_classes=nc), nc)
+
+
+@register_model("beit_large_patch16_224")
+def beit_large(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(dpn_pnasnet_beit.BEiT(num_classes=nc, dim=1024, depth=24, heads=16), nc)
+
+
+@register_model("dpn26")
+def dpn26(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(dpn_pnasnet_beit.DPN(num_classes=nc, **dpn_pnasnet_beit.DPN26), nc, (32, 32))
+
+
+@register_model("dpn92")
+def dpn92(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(dpn_pnasnet_beit.DPN(num_classes=nc, **dpn_pnasnet_beit.DPN92), nc, (32, 32))
+
+
+@register_model("pnasnet")
+def pnasnet(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(dpn_pnasnet_beit.PNASNet(num_classes=nc), nc, (32, 32))
+
+
+@register_model("vgg16")
+def vgg16(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(misc_models.VGG(misc_models.VGG_CFGS["vgg16"], num_classes=nc), nc, (32, 32))
+
+
+@register_model("vgg19_bn")
+def vgg19_bn(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(misc_models.VGG(misc_models.VGG_CFGS["vgg19"], num_classes=nc), nc, (32, 32))
+
+
+@register_model("lenet")
+def lenet(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(misc_models.LeNet(num_classes=nc), nc, (32, 32))
+
+
+SHUFFLENET_WIDTHS = {"shufflenet_v2_x0_5": (48, 96, 192), "shufflenet_v2_x1_0": (116, 232, 464),
+                     "shufflenet_v2_x1_5": (176, 352, 704), "shufflenet_v2_x2_0": (244, 488, 976)}
+
+for _name, _widths in SHUFFLENET_WIDTHS.items():
+    register_model(_name)(lambda _widths=_widths, num_classes=None, **kw: _cls_spec(
+        misc_models.ShuffleNetV2(num_classes=num_classes or 1000, stage_channels=_widths), num_classes or 1000))
+
+
+@register_model("shufflenet_v2_custom5")
+def shufflenet_v2_custom5(num_classes=None, arch_params=None, **kw):
+    ap = arch_params or {}
+    nc = num_classes or ap.get("num_classes", 1000)
+    return _cls_spec(misc_models.ShuffleNetV2(num_classes=nc, stage_channels=tuple(ap.get("channels", (48, 96, 192)))),
+                     nc)
+
+
+def _densenet(growth, blocks, init_features, num_classes=None) -> ModelSpec:
+    nc = num_classes or 1000
+    return _cls_spec(misc_models.DenseNet(num_classes=nc, growth_rate=growth, block_config=tuple(blocks),
+                                          init_features=init_features), nc)
+
+
+for _name, (_growth, _blocks, _init) in {"densenet121": (32, (6, 12, 24, 16), 64),
+                                         "densenet161": (48, (6, 12, 36, 24), 96),
+                                         "densenet169": (32, (6, 12, 32, 32), 64),
+                                         "densenet201": (32, (6, 12, 48, 32), 64)}.items():
+    register_model(_name)(lambda _g=_growth, _b=_blocks, _i=_init, num_classes=None, **kw: _densenet(
+        _g, _b, _i, num_classes))
+
+
+@register_model("custom_densenet")
+def custom_densenet(num_classes=None, arch_params=None, **kw):
+    ap = arch_params or {}
+    return _densenet(ap.get("growth_rate", 32), tuple(ap.get("structure", (6, 12, 24, 16))),
+                     ap.get("num_init_features", 64), num_classes or ap.get("num_classes"))
+
+
+@register_model("resnext50")
+def resnext50(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(misc_models.ResNeXt(num_classes=nc), nc)
+
+
+@register_model("resnext101")
+def resnext101(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(misc_models.ResNeXt(num_classes=nc, num_blocks=(3, 4, 23, 3)), nc)
+
+
+@register_model("preact_resnet18")
+def preact_resnet18(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(more_models.PreActResNet(num_classes=nc), nc, (32, 32))
+
+
+@register_model("googlenet_v1")
+def googlenet_v1(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(more_models.GoogLeNet(num_classes=nc), nc)
+
+
+@register_model("senet18")
+def senet18(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 10
+    return _cls_spec(more_models.SENetCifar(num_classes=nc), nc, (32, 32))
+
+
+@register_model("darknet53")
+def darknet53(num_classes=None, arch_params=None, **kw):
+    nc = num_classes or 1000
+    return _cls_spec(darknet.Darknet53(num_classes=nc), nc)
+
+
+@register_model("csp_darknet53")
+def csp_darknet53(num_classes=None, arch_params=None, **kw):
+    """The classifier on the YOLOX CSPDarknet trunk, as in the JAX zoo."""
+    nc = num_classes or 1000
+    return _cls_spec(darknet.CSPDarknet53(num_classes=nc), nc)

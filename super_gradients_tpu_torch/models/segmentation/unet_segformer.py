@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from super_gradients_tpu_torch.models.segmentation.stdc import SegmentationHead, reset_segmentation_parameters, resize_to
-from super_gradients_tpu_torch.modules.blocks import ConvBNReLU
+from super_gradients_tpu_torch.modules.blocks import ConvBNReLU, same_pad
 
 LAYER_NORM_EPS = 1e-6  # flax's LayerNorm default
 
@@ -175,16 +175,6 @@ class UNetClassifier(nn.Module):
 
 
 # ------------------------------------------------------------------------- SegFormer
-
-
-def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
-    """XLA's ``SAME`` padding of a ``kernel`` / ``stride`` conv: ``ceil(n / stride)`` outputs, the
-    odd pixel of padding at the bottom or right."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):
-        total = max((math.ceil(n / stride) - 1) * stride + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads) if any(pads) else x
 
 
 def tokens_to_map(t: torch.Tensor, h: int, w: int) -> torch.Tensor:

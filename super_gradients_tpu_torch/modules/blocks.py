@@ -18,6 +18,7 @@ from collections import OrderedDict
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # the activations the ported families' configs can name (the JAX table has more); relu6,
@@ -50,6 +51,17 @@ def width_multiplier(original: int, factor: float, divisor: Optional[int] = None
 
 def _bn(channels: int, eps: float, momentum: float) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=eps, momentum=momentum)
+
+
+def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """XLA's ``SAME`` padding of a ``kernel`` / ``stride`` conv: ``ceil(n / stride)`` outputs, the
+    odd pixel of padding at the bottom or right (flax's default conv padding; EfficientNet's
+    ``padding="same"``)."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):
+        total = max((math.ceil(n / stride) - 1) * stride + kernel - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads) if any(pads) else x
 
 
 class ConvBNAct(nn.Module):
@@ -101,6 +113,20 @@ class SEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.fc(x.mean(dim=(2, 3)))[:, :, None, None]
+
+
+class ConvSEBlock(nn.Module):
+    """The JAX ``SEBlock`` with its two 1x1 convs kept as convs (``fc1``, ``fc2``, with bias):
+    the global mean, ``fc1``, ReLU, ``fc2``, the sigmoid gate, times the input (RepVGG's
+    squeeze-excitation)."""
+
+    def __init__(self, channels: int, squeeze_channels: int):
+        super().__init__()
+        self.fc1 = nn.Conv2d(channels, squeeze_channels, 1)
+        self.fc2 = nn.Conv2d(squeeze_channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True)))))
 
 
 def _fuse_bn(kernel: torch.Tensor, bias: Optional[torch.Tensor], bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -202,36 +228,53 @@ class QARepVGGBlock(nn.Module):
 
 
 class RepVGGBlock(nn.Module):
-    """Classic RepVGG block (reference ``modules/repvgg_block.py``), as PP-YOLOE's
-    ``CSPResNetBasicBlock`` uses it: ``branch_3x3`` (conv + BN) plus ``branch_1x1`` (conv +
-    BN), summed, then the activation. ``fused=True`` builds the deploy form, one
-    ``rbr_reparam`` 3x3 conv with bias; :meth:`fuse_` turns an unfused block into it in
-    place. The identity branch, groups, dilation and squeeze-excitation of the JAX block are
-    not ported: no PP-YOLOE block uses them.
+    """Classic RepVGG block (reference ``modules/repvgg_block.py``): ``branch_3x3`` (conv + BN)
+    plus ``branch_1x1`` (conv + BN) plus, with ``use_residual``, the identity BN
+    ``no_conv_branch``, summed, then the activation, then the squeeze-excitation ``se`` where
+    ``se_ratio`` is given (``int(out_channels * se_ratio)`` squeeze channels, ReLU, sigmoid).
+    ``groups`` and ``dilation`` apply to both convs (the 3x3 pads ``dilation``). ``fused=True``
+    builds the deploy form, one ``rbr_reparam`` 3x3 conv with bias; :meth:`fuse_` turns an
+    unfused block into it in place, folding the identity branch as the JAX
+    ``fuse_repvgg_params`` does. PP-YOLOE's blocks take the defaults: no identity, no groups,
+    no SE.
     """
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1, act="relu", bn_eps: float = 1e-5,
-                 bn_momentum: float = 0.1, fused: bool = False):
+                 bn_momentum: float = 0.1, fused: bool = False, use_residual: bool = False, groups: int = 1,
+                 dilation: int = 1, se_ratio: Optional[float] = None):
         super().__init__()
+        if use_residual and (in_channels != out_channels or stride != 1):
+            raise ValueError("a residual RepVGG block needs in_channels == out_channels and stride 1")
         self.in_channels, self.out_channels, self.stride = in_channels, out_channels, stride
+        self.groups, self.dilation, self.use_residual = groups, dilation, use_residual
         self.fused = fused
         self.act = get_activation(act)
         if fused:
-            self.rbr_reparam = nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=True)
-            return
-        self.branch_3x3 = nn.Sequential(OrderedDict(
-            conv=nn.Conv2d(in_channels, out_channels, 3, stride, 1, bias=False),
-            bn=_bn(out_channels, bn_eps, bn_momentum),
-        ))
-        self.branch_1x1 = nn.Sequential(OrderedDict(
-            conv=nn.Conv2d(in_channels, out_channels, 1, stride, 0, bias=False),
-            bn=_bn(out_channels, bn_eps, bn_momentum),
-        ))
+            self.rbr_reparam = self._conv3x3(bias=True)
+        else:
+            self.branch_3x3 = nn.Sequential(OrderedDict(conv=self._conv3x3(bias=False),
+                                                        bn=_bn(out_channels, bn_eps, bn_momentum)))
+            self.branch_1x1 = nn.Sequential(OrderedDict(
+                conv=nn.Conv2d(in_channels, out_channels, 1, stride, 0, groups=groups, bias=False),
+                bn=_bn(out_channels, bn_eps, bn_momentum),
+            ))
+            if use_residual:
+                self.no_conv_branch = _bn(in_channels, bn_eps, bn_momentum)
+        self.se = ConvSEBlock(out_channels, max(1, int(out_channels * se_ratio))) if se_ratio else None
+
+    def _conv3x3(self, bias: bool) -> nn.Conv2d:
+        return nn.Conv2d(self.in_channels, self.out_channels, 3, self.stride, self.dilation, dilation=self.dilation,
+                         groups=self.groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            return self.act(self.rbr_reparam(x))
-        return self.act(self.branch_3x3(x) + self.branch_1x1(x))
+            out = self.act(self.rbr_reparam(x))
+        else:
+            y = self.branch_3x3(x) + self.branch_1x1(x)
+            if self.use_residual:
+                y = y + self.no_conv_branch(x)
+            out = self.act(y)
+        return out if self.se is None else self.se(out)
 
     @torch.no_grad()
     def fuse_(self) -> "RepVGGBlock":
@@ -240,11 +283,20 @@ class RepVGGBlock(nn.Module):
             return self
         k3, b3 = _fuse_bn(self.branch_3x3.conv.weight, None, self.branch_3x3.bn)
         k1, b1 = _fuse_bn(nn.functional.pad(self.branch_1x1.conv.weight, (1, 1, 1, 1)), None, self.branch_1x1.bn)
-        conv = nn.Conv2d(self.in_channels, self.out_channels, 3, self.stride, 1, bias=True)
-        conv = conv.to(device=k3.device, dtype=k3.dtype)
-        conv.weight.copy_(k3 + k1)
-        conv.bias.copy_(b3 + b1)
-        del self.branch_3x3, self.branch_1x1
+        kernel, bias = k3 + k1, b3 + b1
+        if self.use_residual:
+            in_dim = self.in_channels // self.groups
+            idx = torch.arange(self.out_channels, device=k3.device)
+            identity = torch.zeros_like(k3)
+            identity[idx, idx % in_dim, 1, 1] = 1.0
+            kid, bid = _fuse_bn(identity, None, self.no_conv_branch)
+            kernel, bias = kernel + kid, bias + bid
+        conv = self._conv3x3(bias=True).to(device=k3.device, dtype=k3.dtype)
+        conv.weight.copy_(kernel)
+        conv.bias.copy_(bias)
+        for name in ("branch_3x3", "branch_1x1", "no_conv_branch"):
+            if hasattr(self, name):
+                delattr(self, name)
         self.rbr_reparam = conv
         self.fused = True
         return self

@@ -575,22 +575,26 @@ def _split_dir(data_dir: str, split: str) -> str:
     return sub if os.path.isdir(sub) else data_dir
 
 
-@register_dataloader("imagenet_resnet50_train")
-@register_dataloader("imagenet_mobilenetv2_train")
-@register_dataloader("imagenet_mobilenetv3_train")
+# the ImageNet recipes' loaders (JAX `_register_imagenet_family`): one ImageFolder loader at 224
+IMAGENET_FAMILIES = ("resnet50", "efficientnet", "mobilenetv2", "mobilenetv3", "regnetY", "repvgg", "vit_base",
+                     "vit_large")
+
+
 def imagenet_resnet50_train(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
-    """The ResNet-50 and MobileNet recipes' train loader: the ImageFolder of ``data_dir/train``
-    (or of ``data_dir``) at 224x224."""
+    """The ImageNet recipes' train loader: the ImageFolder of ``data_dir/train`` (or of
+    ``data_dir``) at 224x224."""
     return DataLoader(ImageFolderDataset(_split_dir(data_dir, "train"), (224, 224)), batch_size=batch_size,
                       shuffle=True, **_loader_kwargs(kw))
 
 
-@register_dataloader("imagenet_resnet50_val")
-@register_dataloader("imagenet_mobilenetv2_val")
-@register_dataloader("imagenet_mobilenetv3_val")
 def imagenet_resnet50_val(data_dir: str, batch_size: int = 128, **kw) -> DataLoader:
     return DataLoader(ImageFolderDataset(_split_dir(data_dir, "val"), (224, 224)), batch_size=batch_size,
                       shuffle=False, drop_last=False, **_loader_kwargs(kw))
+
+
+for _family in IMAGENET_FAMILIES:
+    register_dataloader(f"imagenet_{_family}_train")(imagenet_resnet50_train)
+    register_dataloader(f"imagenet_{_family}_val")(imagenet_resnet50_val)
 
 
 @register_dataloader("cifar10_train")

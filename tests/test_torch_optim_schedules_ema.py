@@ -28,7 +28,7 @@ from super_gradients_tpu.training import ema as jax_ema
 from super_gradients_tpu.training import optimizers as jax_optimizers
 from super_gradients_tpu.training import schedules as jax_schedules
 from super_gradients_tpu_torch.training import callbacks, ema, schedules, trainer
-from super_gradients_tpu_torch.training.optimizers import build_optimizer
+from super_gradients_tpu_torch.training.optimizers import Lion, RMSProp, build_optimizer
 
 torch.set_num_threads(2)
 
@@ -226,10 +226,13 @@ def test_ema_follows_buffers_but_not_counters():
 
 
 def test_unported_optimizers_and_names():
+    """Every optimizer name of the JAX registry builds the port's optimizer (RMSProp and Lion
+    since they were ported); a name neither package registers raises, naming the registered ones."""
     params = [("w", nn.Parameter(torch.zeros(2, 2)))]
-    for name in ("RMSProp", "rmsprop", "Lion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_optimizer(name, params)
+    for name, cls in (("RMSProp", RMSProp), ("rmsprop", RMSProp), ("RMSprop", RMSProp), ("Lion", Lion)):
+        assert isinstance(build_optimizer(name, params), cls)
+    with pytest.raises(KeyError, match="Lion.*RMSProp"):
+        build_optimizer("Adagrad", params)
     with pytest.raises(KeyError, match="AdamW"):
         build_optimizer("AdamX", params)
     assert isinstance(build_optimizer("sgd", params), torch.optim.SGD)

@@ -238,8 +238,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
     surface (the pose, classification, segmentation, PP-YOLOE / YOLOX and MobileNet / SSD
-    modules included) imports, detection (YOLO-NAS, YOLOX, SSD-lite, tiled), pose,
-    classification (ResNet, MobileNetV3) and segmentation
+    modules and the rest of the classification zoo included) imports, detection (YOLO-NAS,
+    YOLOX, SSD-lite, tiled), pose, classification (ResNet, MobileNetV3, EfficientNet, ViT) and
+    segmentation
     predict take the no-cv2 resizes, reading an image
     or a YAML recipe raises
     an ImportError that names
@@ -293,6 +294,9 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.models.detection import ssd
         from super_gradients_tpu_torch.training.losses import ssd_loss
         from super_gradients_tpu_torch.parallel import collectives, mesh, sync_batch_norm
+        from super_gradients_tpu_torch.models.classification import darknet, dpn_pnasnet_beit, efficientnet
+        from super_gradients_tpu_torch.models.classification import misc_models, more_models, regnet, repvgg, vit
+        from super_gradients_tpu_torch.training.optimizers import Lion, RMSProp
         from super_gradients_tpu_torch import setup_device
         assert setup_device is mesh.setup_device
         assert processing.cv2_module() is None
@@ -324,6 +328,11 @@ def test_port_runs_with_jax_blocked(tmp_path):
         mobile = models.get("mobilenet_v3_small", num_classes=10, arch_params={{"width_mult": 0.5}}, device="cpu")
         top = mobile.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], batch_size=2)
         assert top[0].labels.shape == (5,) and np.isfinite(top[0].confidence).all()
+        for name, ap in (("efficientnet_b0", {{"width_coefficient": 0.25, "depth_coefficient": 0.35, "image_size": 64}}),
+                         ("vit_base", {{"image_size": [64, 64], "patch_size": [32, 32]}})):
+            zoo = models.get(name, num_classes=10, arch_params=ap, device="cpu")
+            top = zoo.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], batch_size=2)
+            assert top[0].labels.shape == (5,) and np.isfinite(top[0].confidence).all()
         segmenter = models.get("pp_lite_t_seg", num_classes=4, input_hw=(64, 128), device="cpu")
         maps = segmenter.predict([rng.randint(0, 256, (40, 70, 3), dtype=np.uint8)], batch_size=2)
         assert maps[0].segmentation_map.shape == (40, 70) and maps[0].segmentation_map.max() < 4

@@ -33,10 +33,11 @@ def tree_size(tree):
     return sum(int(np.prod(np.shape(a))) for a in jax.tree_util.tree_leaves(tree))
 
 
-def seeded_variables(module, hw, seed):
-    """Variables of ``module`` at ``hw`` drawn from ``np.random.RandomState(seed)``: He-normal
-    kernels, small biases, scales near 1, BN means near 0 and variances in [0.5, 1.5]."""
-    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, *hw, 3)), train=False))
+def seeded_variables(module, hw, seed, channels=3):
+    """Variables of ``module`` at ``hw`` (``channels`` input channels) drawn from
+    ``np.random.RandomState(seed)``: He-normal kernels, small biases, scales near 1, BN means near
+    0 and variances in [0.5, 1.5]."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), jnp.zeros((1, *hw, channels)), train=False))
     rng = np.random.RandomState(seed)
 
     def draw(path, s):

@@ -226,7 +226,24 @@ result) without CUDA or without the port's sources next to it. Phases:
    fp32 step timed; (d) ``train_from_recipe`` of ``imagenet_efficientnet`` and ``imagenet_vit_base``
    on phase 14(c)'s ImageFolder tree (10 classes), bf16, one epoch of two steps of b100, validated:
    losses and metrics finite, every parameter changed, ``evaluate_checkpoint`` within 1e-6 of a direct
-   ``Trainer.evaluate`` with a planted fault beyond it.
+   ``Trainer.evaluate`` with a planted fault beyond it;
+22. export and knowledge distillation at full width: (a) YOLO-NAS-M (80 classes, 640, seed 0,
+   ``cls_pred`` biases 0) exported fused bf16 with exact NMS (``conversion/export.py``, K1 as the
+   op ``sg_torch::nms_exact_keep``) at b1 and b8, saved, loaded and run on phase 3's letterboxed
+   request and on noise: ``num_detections`` equal to the live ``predict_batch_tensor``, >= 99% of
+   the detections matched at IoU 0.99, K1 launched inside the loaded program and bit-equal to its
+   plain version on the candidates captured there; the export seconds, the artifact's MB, the
+   exported and live b8 batch ms and the op's dispatch against K1's direct launch; YOLO-NAS-POSE-S
+   (640) and PP-LiteSeg-T (512x1024) exported in fp32 and held on the card to the CPU by phase
+   13(a)'s and 15(a)'s gates; (b) ``imagenet_resnet50_kd``'s bf16 step (ResNet-50 from BEiT-Base/16,
+   1000 classes, 224) at its b192 by part (teacher and student forward apart), with idle share and
+   peak memory; ``train_from_kd_recipe`` of that recipe on phase 14(c)'s ImageFolder tree, one epoch
+   of two steps, the teacher from a port-written ``.pth`` in a temporary ``$SG_PRETRAINED_DIR``: the
+   teacher bit-unchanged, the student moved, ``evaluate_checkpoint`` within 1e-6 of a direct
+   ``Trainer.evaluate`` with a planted fault beyond it; one fp32 KD step of ``resnet18_cifar`` from
+   ``resnet18_cifar`` at 32 px within twice the CPU's distance to fp64; ``cityscapes_kd_base``'s bf16
+   step (DDRNet-23-slim from DDRNet-39, ``SegKDLoss``) at its b16 and 512x1024 on a batch of phase
+   15(d)'s tree, by part. K1's launches of (a) join the kernels line; (b) launches none.
 
 Phase 7 also validates: 2 batches of 16 after each epoch with ``DetectionMetrics``
 (K1 once a batch: 4 launches inside ``Trainer.train``), writes ``ckpt_latest``,
@@ -1285,7 +1302,7 @@ class NoStandIns:
 
 
 def cv2_threads_rates(dataloaders, cv2, train_set, workers):
-    """The loader alone at ``workers`` workers, one wave each, in turns: cv2's own pool in
+    """The loader alone at ``workers`` workers, one wave each: cv2's own pool in
     each worker (the kept choice) and cv2 run sequentially in each worker
     (``cv2.setNumThreads(0)`` after the worker init; ``setNumThreads(1)`` would resize the
     pool, which crashes a forked worker whose parent has used it)."""
@@ -1299,7 +1316,7 @@ def cv2_threads_rates(dataloaders, cv2, train_set, workers):
                 "cv2 sequential in each worker": sequential}
     rates = {name: [] for name in variants}
     try:
-        for name in list(variants) + list(variants)[::-1]:
+        for name in variants:
             dataloaders._seed_worker = variants[name]
             rates[name].append(one_wave(dataloaders, train_set, workers)[0])
     finally:
@@ -1432,7 +1449,7 @@ def _phase_recipe(torch, np, nms_exact, ckpt_root, data_root, cv2):
           f"worker, all at once, from a fresh loader), cpu_count {cpus}: "
           + ", ".join(f"{n} workers {' / '.join(f'{r:.1f}' for r in rs)} img/s" for n, rs in rates.items())
           + f"; a sample's chain on one thread, ms by stage: {json.dumps(breakdown)}")
-    print(f"[11] cv2 threads in the {workers} loader workers, loader alone in turns (img/s): "
+    print(f"[11] cv2 threads in the {workers} loader workers, loader alone, one wave each (img/s): "
           + "; ".join(f"{name} {' / '.join(f'{r:.1f}' for r in rs)}" for name, rs in threads.items()))
     print(f"[11] phase seconds: {time.perf_counter() - t_phase:.1f}")
     torch.cuda.empty_cache()
@@ -3459,7 +3476,7 @@ DDP_BN_SHAPE = (4, 96, 160, 160)  # 18b's standalone BN check: a stage-1-sized a
 DDP_BN_TOL = 1e-5  # |global BN - one-process BN| over the largest magnitude, fp32 (TF32 off)
 DDP_BN_BF16_SHAPE = (16, 96, 160, 160)  # 18a's bf16 BN check: a stage-1 activation of YOLO-NAS-M at 640, b16
 DDP_BN_BF16_TOL = 1e-2  # the same, bf16 channels_last in and out (a bf16 ulp is 3.9e-3 of a value)
-DDP_TIMED_STEPS = 5  # 18a's steps timed a variant in each of its two interleaved passes (phase 9 times 10)
+DDP_TIMED_STEPS = 3  # 18a's steps timed a variant in each of its two interleaved passes (phase 9 times 10)
 
 
 def launch_ranks(torch_run_args, rank_args, timeout=DDP_TIMEOUT):
@@ -4556,6 +4573,411 @@ def phase_cls_zoo_recipes(torch, np, root, imagenet_root):
         torch.cuda.empty_cache()
 
 
+# phase 22: the exported programs' batches, and the KD recipe's batch in 22(b)'s recipe run (phase 14(c)'s
+# 200 train PNGs make one epoch of two steps)
+EXPORT_BATCHES = (1, 8)
+KD_RECIPE_BATCH = 100
+KD_STEP_B = 192  # imagenet_resnet50_kd.yaml's train batch
+SEG_KD_STEP_B = 16  # cityscapes_kd_base.yaml's train batch, at its 512x1024
+
+
+class CaptureK1:
+    """Records each call of K1's op ``sg_torch::nms_exact_keep`` (its inputs and its keep mask)
+    made inside a ``with`` block, as an exported program makes it."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        op, calls = torch.ops.sg_torch.nms_exact_keep.default, []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func is op:
+                    calls.append((args, out))
+                return out
+
+        self.mode, self.calls = Mode(), calls
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def letterboxed_uint8(np, model, images):
+    """``images`` through ``model``'s host preprocessing (letterbox to its input, /255), with the
+    division undone exactly: the uint8 batch an exported program takes."""
+    _, batches, _ = model._prep_host_batches(images, len(images))
+    return np.rint(batches[0] * 255.0).astype(np.uint8)
+
+
+class ResultSet:
+    """One image's detections or poses (numpy fields) as ``match_detections`` and ``pose_matched`` read them."""
+
+    def __init__(self, **fields):
+        self.__dict__.update(fields)
+
+    def __len__(self):
+        return len(self.bboxes_xyxy)
+
+
+def detections_of(np, out, i):
+    """Image ``i`` of a batched ``NMSOutput``."""
+    n = int(out.num_detections[i])
+    return ResultSet(bboxes_xyxy=out.boxes[i, :n].float().cpu().numpy(), confidence=out.scores[i, :n].float().cpu().numpy(),
+                     labels=out.labels[i, :n].cpu().numpy())
+
+
+def poses_of(out, i):
+    """Image ``i`` of a batched ``PoseNMSOutput``."""
+    n = int(out.num_detections[i])
+    return ResultSet(bboxes_xyxy=out.boxes[i, :n].cpu().numpy(), poses=out.poses[i, :n].cpu().numpy())
+
+
+def phase_export(torch, np, nms_exact, matched_fraction, box_iou, root):
+    """22(a) export at full width: YOLO-NAS-M (80 classes, 640, seed 0, cls_pred biases 0) exported
+    fused bf16 with exact NMS at b1 and b8, saved, loaded, run on phase 3's letterboxed request and
+    on noise: num_detections equal to the live predict_batch_tensor, >= 99% of the detections matched
+    at IoU 0.99, K1 launched inside the loaded program and bit-equal to its plain version on the
+    candidates captured there; export seconds, artifact MB, the exported and live b8 batch ms and
+    K1's op dispatch against its direct launch. Then YOLO-NAS-POSE-S (640) and PP-LiteSeg-T
+    (512x1024) exported in fp32 and held, on the card, to the CPU's live forward by phase 13(a)'s and
+    phase 15(a)'s gates. Returns (K1 launches of the exported and live programs, the largest K1 vs
+    plain difference)."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.conversion.export import load_exported
+
+    t_phase = time.perf_counter()
+    model = zero_cls_bias(models.get("yolo_nas_m", num_classes=80, seed=0, device="cuda"))
+    request = letterboxed_uint8(np, model, request_images(np, 3))  # [4, 640, 640, 3]
+    noise = np.random.RandomState(22).randint(0, 256, (8, 640, 640, 3), dtype=np.uint8)
+    kw = dict(nms_mode="exact", fuse_model=True, bf16=True)
+    launches, max_err, programs = 0, 0.0, {}
+    for b in EXPORT_BATCHES:
+        path = os.path.join(root, f"yolo_nas_m_b{b}.pt2")
+        t0 = time.perf_counter()
+        result = model.export(path, batch_size=b, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = programs[b] = load_exported(path)
+        load_s = time.perf_counter() - t0
+        inputs = [request[i:i + 1] for i in range(len(request))] if b == 1 else \
+            [np.concatenate([request, noise[:4]]), noise]
+        fractions, bit_equal, dets = [], True, []
+        for x in inputs:
+            before = nms_exact.exact_nms_keep.launches
+            with CaptureK1(torch) as capture:
+                got = program.call(x)
+            torch.cuda.synchronize()
+            inside = nms_exact.exact_nms_keep.launches - before
+            check(inside == 1 and len(capture.calls) == 1,
+                  f"the loaded b{b} program launched K1 {inside} times ({len(capture.calls)} op calls), expected 1")
+            (boxes, valid, t), keep = capture.calls[0]
+            ref = nms_exact.exact_nms_keep_plain(boxes.cpu(), valid.cpu(), t)
+            err = float((keep.cpu().float() - ref.float()).abs().max())
+            check(err == 0.0, f"K1 inside the b{b} program differs from its plain version")
+            max_err = max(max_err, err)
+            live = model.predict_batch_tensor(torch.from_numpy(x).cuda().float() / 255.0, **kw)
+            torch.cuda.synchronize()
+            launches += nms_exact.exact_nms_keep.launches - before
+            check(torch.equal(got.num_detections, live.num_detections),
+                  f"b{b}: exported num_detections {got.num_detections.tolist()} vs live {live.num_detections.tolist()}")
+            bit_equal = bit_equal and all(torch.equal(a, c) for a, c in zip(got, live))
+            for i in range(len(x)):
+                fractions.append(matched_fraction(detections_of(np, got, i), detections_of(np, live, i), 0.99))
+            dets += got.num_detections.tolist()
+        print(f"[22a] yolo_nas_m 80 classes 640 fused bf16 exact NMS exported at b{b}: {export_s:.1f} s to export and "
+              f"save, {load_s:.1f} s to load, artifact {os.path.getsize(path) / 1e6:.1f} MB, input {result.input_dtype} "
+              f"{list(result.input_shape)}; on phase 3's request and noise: detections {dets}, num_detections equal "
+              f"to the live predict_batch_tensor, matched at IoU 0.99 min {min(fractions):.4f}, bit-equal to live "
+              f"{bit_equal}; K1 launched once a call inside the loaded program, bit-equal to its plain version on the "
+              f"captured candidates")
+        check(min(fractions) >= 0.99, f"b{b}: exported vs live matched fractions {fractions}")
+    # timing, outside the launch count: the exported program against the live path at b8, and the op's dispatch
+    before = nms_exact.exact_nms_keep.launches
+    x8 = torch.from_numpy(noise).cuda()
+    xf = x8.float() / 255.0
+    exported_ms = cuda_ms(lambda: programs[8].call(x8), iters=10)
+    live_ms = cuda_ms(lambda: model.predict_batch_tensor(xf, **kw), iters=10)
+    with CaptureK1(torch) as capture:
+        programs[8].call(x8)
+    (boxes, valid, t), _ = capture.calls[0]
+    op_ms = cuda_ms(lambda: nms_exact.exact_nms_keep(boxes, valid, t), iters=200)
+    direct_ms = cuda_ms(lambda: nms_exact._nms_exact_keep_cuda(boxes, valid, t), iters=200)
+    torch.cuda.synchronize()
+    nms_exact.exact_nms_keep.launches = before
+    print(f"[22a] b8 batch (CUDA events, as the host issues it): exported program {exported_ms:.2f} ms, live "
+          f"predict_batch_tensor {live_ms:.2f} ms (phase 5's path); K1 through its op {op_ms:.4f} ms a call, its "
+          f"direct launch {direct_ms:.4f} ms: the op's dispatch costs {1e3 * (op_ms - direct_ms):.1f} us, "
+          f"{100 * (op_ms - direct_ms) / live_ms:.3f}% of the live b8 batch")
+    del programs, model, x8, xf, boxes, valid
+    torch.cuda.empty_cache()
+    print(f"[22a] detection seconds {time.perf_counter() - t_phase:.1f}")
+
+    launches += phase_export_pose(torch, np, nms_exact, box_iou, root)
+    phase_export_segmentation(torch, np, root)
+    print(f"[22a] seconds {time.perf_counter() - t_phase:.1f}; K1 launches {launches}")
+    return launches, max_err
+
+
+def phase_export_pose(torch, np, nms_exact, box_iou, root):
+    """YOLO-NAS-POSE-S at 640 exported in fp32 (exact NMS, conf 0.01, up to POSE_MAX_PREDICTIONS
+    poses) at b2, run on the card on phase 3's letterboxed request (two images) and held to the CPU's
+    live fp32 predict_batch_tensor (TF32 off) by phase 13(a)'s gate. Returns K1's launches."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.conversion.export import load_exported
+
+    t0 = time.perf_counter()
+    model = zero_cls_bias(models.get("yolo_nas_pose_s", seed=0, device="cuda"))
+    cpu_model = zero_cls_bias(models.get("yolo_nas_pose_s", seed=0, device="cpu"))
+    x = letterboxed_uint8(np, cpu_model, request_images(np, 3)[:2])
+    kw = dict(confidence_threshold=0.01, max_predictions=POSE_MAX_PREDICTIONS, bf16=False, nms_mode="exact")
+    path = os.path.join(root, "yolo_nas_pose_s.pt2")
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model.export(path, batch_size=len(x), **kw)
+        export_s = time.perf_counter() - t0
+        before = nms_exact.exact_nms_keep.launches
+        got = load_exported(path).call(x)
+        torch.cuda.synchronize()
+        launched = nms_exact.exact_nms_keep.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    ref = cpu_model.predict_batch_tensor(torch.from_numpy(x).float() / 255.0, conf=0.01, max_predictions=POSE_MAX_PREDICTIONS,
+                                         bf16=False, fuse_model=False)
+
+    def iou_np(a, b):
+        return box_iou(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+
+    fractions, worst = [], 0.0
+    for i in range(len(x)):
+        frac, px = pose_matched(np, iou_np, poses_of(got, i), poses_of(ref, i))
+        fractions.append(frac)
+        worst = max(worst, px)
+    print(f"[22a] yolo_nas_pose_s 640 fp32 exported (exact NMS, conf 0.01) at b{len(x)}: {export_s:.1f} s, artifact "
+          f"{os.path.getsize(path) / 1e6:.1f} MB; on the card vs the CPU's live forward (TF32 off): poses "
+          f"{got.num_detections.tolist()} vs {ref.num_detections.tolist()}, matched at box IoU 0.99 "
+          f"{[round(f, 4) for f in fractions]}, joints |card - CPU| max {worst:.4f} px (limit {POSE_PX_TOL}); K1 "
+          f"launches {launched}")
+    check(launched == 1, f"the loaded pose program launched K1 {launched} times, expected 1")
+    check(min(fractions) >= 0.99 and int(got.num_detections.min()) > 0, f"exported pose matched fractions {fractions}")
+    check(worst <= POSE_PX_TOL, f"exported poses differ by {worst} px from the CPU's")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_export_segmentation(torch, np, root):
+    """PP-LiteSeg-T (19 classes, 512x1024, seed 0) exported in fp32 at b2, run on the card on two of
+    phase 15's images resized to its input, its class maps held to the CPU's live forward (TF32 off)
+    by phase 15(a)'s SEG_AGREEMENT."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.conversion.export import load_exported
+    from super_gradients_tpu_torch.inference.processing import resize
+
+    t0 = time.perf_counter()
+    model = models.get("pp_lite_t_seg", seed=0, device="cuda")
+    cpu_model = models.get("pp_lite_t_seg", seed=0, device="cpu")
+    x = np.stack([resize(img, (512, 1024)) for img in seg_request(np, 31)[:2]])
+    path = os.path.join(root, "pp_lite_t_seg.pt2")
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model.export(path, batch_size=len(x), image_hw=(512, 1024), bf16=False)
+        export_s = time.perf_counter() - t0
+        got = load_exported(path).call(x).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    proc = cpu_model.get_processing_params().get_equivalent_photometric_fn()
+    with torch.inference_mode():
+        ref = cpu_model.net(proc(torch.from_numpy(x).float()).permute(0, 3, 1, 2)).argmax(dim=1).int()
+    agree = [float((got[i] == ref[i]).float().mean()) for i in range(len(x))]
+    print(f"[22a] pp_lite_t_seg 19 classes 512x1024 fp32 exported at b{len(x)}: {export_s:.1f} s, artifact "
+          f"{os.path.getsize(path) / 1e6:.1f} MB, output {got.dtype} {list(got.shape)}; class maps on the card vs the "
+          f"CPU's live forward (TF32 off): pixels agreeing {[round(a, 6) for a in agree]} (limit {SEG_AGREEMENT}), "
+          f"classes used {len(torch.unique(got))}")
+    check(got.dtype == torch.int32 and tuple(got.shape) == (len(x), 512, 1024), "the exported class maps' type or shape")
+    check(min(agree) >= SEG_AGREEMENT, f"exported PP-LiteSeg-T agrees with the CPU on {agree} of the pixels")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+
+
+def kd_step_by_part(torch, tag, recipe, cfg_overrides, b, hw, batch):
+    """``recipe``'s train step of its ``kd_module`` (random weights, seed 0) in bf16 at ``b`` on
+    ``batch`` (images, targets on the card), by part as Trainer.prepare builds it, with the teacher's
+    and the student's forward alone, its idle share and peak memory; the teacher bit-unchanged."""
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer
+    from super_gradients_tpu_torch.training.mixed_precision import autocast
+
+    cfg = config.load_recipe(recipe, overrides=cfg_overrides)
+    tp = dict(cfg["training_hyperparams"], mixed_precision=True)
+    t0 = time.perf_counter()
+    model = models.get("kd_module", num_classes=cfg["num_classes"], arch_params=cfg["arch_params"], seed=0)
+    step = Trainer(f"chip_smoke_{recipe}_timing").prepare(model, tp, steps_per_epoch=100)
+    build_s = time.perf_counter() - t0
+    net = step.state.net
+    teacher0 = {k: v.clone() for k, v in net.teacher.state_dict().items()}
+    images, targets = batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = step_runner(step, images, targets)
+    ms = time_by_part(torch, run)
+    with torch.no_grad(), autocast(images.device, True):
+        teacher_ms = cuda_ms(lambda: net.teacher(images), iters=5)
+        student_ms = cuda_ms(lambda: net.student(images), iters=5)
+    prof_events, wall_ms = profiled(torch, run, 5, with_cpu=False)
+    busy_ms = sum(_self_device_us(e) for e in prof_events) / 1e3 / 5
+    loss = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    changed = [k for k, v in net.teacher.state_dict().items() if not torch.equal(v, teacher0[k])]
+    print(f"[{tag}] {recipe} step ({cfg['arch_params']['student']} from {cfg['arch_params']['teacher']}, "
+          f"{tp['loss']}, {tp['optimizer']}, EMA {bool(tp.get('ema'))}) bf16 b{b} at {hw[0]}x{hw[1]}: {ms['step']:.2f} "
+          f"ms/step, {b * 1e3 / ms['step']:.1f} img/s (CUDA events); forward {ms['forward']:.2f} (alone, no grad: "
+          f"teacher {teacher_ms:.2f}, student {student_ms:.2f}), loss {ms['loss']:.2f}, backward {ms['backward']:.2f}, "
+          f"optimizer + EMA {ms['update']:.2f} ms; profiled: wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}; peak memory {peak:.2f} GiB; built in {build_s:.1f} s; teacher "
+          f"tensors changed {len(changed)} of {len(teacher0)}")
+    check(bool(torch.isfinite(loss)), f"{recipe} bf16 b{b} KD loss not finite")
+    check(not changed, f"{recipe}: the step changed the teacher's {changed[:5]}")
+    del model, step, net, prof_events, loss
+    torch.cuda.empty_cache()
+
+
+def kd_fp32_step(torch, models, device, dtype, images, targets, teacher_sd, student_sd):
+    """One KD SGD step (momentum 0.9, weight decay 1e-4, KDLogitsLoss T=2 c=0.5) of resnet18_cifar from
+    resnet18_cifar on ``device`` in ``dtype``; returns the updated student state on the CPU in fp64."""
+    from super_gradients_tpu_torch.training import Trainer
+
+    model = models.get("kd_module", num_classes=10, device=device,
+                       arch_params={"student": "resnet18_cifar", "teacher": "resnet18_cifar"})
+    model.load_state_dict({**{f"student.{k}": v for k, v in student_sd.items()},
+                           **{f"teacher.{k}": v for k, v in teacher_sd.items()}})
+    model.net.to(dtype)
+    tp = dict(loss="KDLogitsLoss", criterion_params={"temperature": 2.0}, initial_lr=0.1,
+              optimizer_params={"momentum": 0.9, "weight_decay": 1e-4}, max_epochs=1)
+    step = Trainer("chip_smoke_kd_fp32").prepare(model, tp, steps_per_epoch=1)
+    step.run(images.to(device, dtype), targets.to(device))
+    return {k: v.detach().cpu().double() for k, v in step.state.net.student.state_dict().items()}
+
+
+def phase_kd(torch, np, nms_exact, root, imagenet_root, cityscapes_root):
+    """22(b) knowledge distillation at full width, launching no kernel: imagenet_resnet50_kd's bf16
+    step (ResNet-50 from BEiT-Base/16, 1000 classes, 224) at its b192 by part; the recipe through
+    train_from_kd_recipe on phase 14(c)'s ImageFolder tree (10 classes), one epoch of two steps of
+    b100, the teacher from a port-written .pth in a temporary $SG_PRETRAINED_DIR: the teacher
+    bit-unchanged, the student moved, the losses finite, evaluate_checkpoint within 1e-6 of a direct
+    Trainer.evaluate with a planted fault beyond it; one fp32 KD step of resnet18_cifar from
+    resnet18_cifar at 32 px (TF32 off) within twice the CPU's distance to fp64; cityscapes_kd_base's
+    bf16 step (DDRNet-23-slim from DDRNet-39, SegKDLoss) at its b16 and 512x1024 on a batch of phase
+    15(d)'s Cityscapes tree, by part."""
+    from super_gradients_tpu_torch import models, train_from_kd_recipe
+    from super_gradients_tpu_torch.common import config
+    from super_gradients_tpu_torch.training import Trainer
+
+    launches_before = nms_exact.exact_nms_keep.launches
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(22)
+    images = torch.randn((KD_STEP_B, 3, 224, 224), generator=gen).cuda().contiguous(memory_format=torch.channels_last)
+    targets = torch.randint(0, 1000, (KD_STEP_B,), generator=gen).cuda()
+    kd_step_by_part(torch, "22b", "imagenet_resnet50_kd", [], KD_STEP_B, (224, 224), (images, targets))
+    del images, targets
+    print(f"[22b] step seconds {time.perf_counter() - t_phase:.1f}")
+
+    # the recipe, by overrides (its root: is not read by imagenet_train / _val, ROADMAP section 3)
+    mirror, ckpt_root = os.path.join(root, "mirror"), os.path.join(root, "ckpt")
+    os.makedirs(mirror)
+    teacher = models.get("beit_base_patch16_224", num_classes=10, seed=7)
+    teacher_sd = {k: v.detach().cpu().clone() for k, v in teacher.net.state_dict().items()}
+    torch.save({"net": teacher_sd}, os.path.join(mirror, "beit_base_patch16_224_imagenet.pth"))
+    del teacher
+    workers = min(8, os.cpu_count())
+    cuts = ["num_classes=10", "epochs=1", f"ckpt_root_dir={ckpt_root}", "training_hyperparams.lr_warmup_epochs=0",
+            "training_hyperparams.sg_logger_params.tensorboard=False"]
+    for split, bs in (("train", KD_RECIPE_BATCH), ("val", 40)):
+        cuts += [f"dataset_params.{split}_dataset_params.data_dir={os.path.join(imagenet_root, split)}",
+                 f"dataset_params.{split}_dataset_params.batch_size={bs}",
+                 f"dataset_params.{split}_dataset_params.num_workers={workers}"]
+    cfg = config.load_recipe("imagenet_resnet50_kd", overrides=cuts)
+    student0 = models.get("resnet50", num_classes=10, seed=0, device="cpu").net.state_dict()
+    previous_mirror = os.environ.get("SG_PRETRAINED_DIR")
+    os.environ["SG_PRETRAINED_DIR"] = mirror
+    try:
+        t0 = time.perf_counter()
+        student, trainer = train_from_kd_recipe.main(["--config-name=imagenet_resnet50_kd", *cuts])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        trained_teacher = trainer.train_state.net.teacher.state_dict()
+        changed = [k for k, v in teacher_sd.items() if not torch.equal(trained_teacher[k].cpu(), v)]
+        moved = [k for k, v in student.net.state_dict().items() if not torch.equal(v.cpu(), student0[k])]
+        history, valid = trainer.train_loss_history, trainer.valid_metrics_history
+        print(f"[22b] train_from_kd_recipe imagenet_resnet50_kd (ResNet-50 from BEiT-Base/16 read from the mirror, "
+              f"{cfg['training_hyperparams']['loss']}, {workers} workers, b{KD_RECIPE_BATCH}): "
+              f"{trainer.train_state.step} steps in {seconds:.1f} s; losses {history}; validation {json.dumps(valid)}; "
+              f"teacher tensors changed {len(changed)} of {len(teacher_sd)}; student tensors moved {len(moved)} of "
+              f"{len(student0)}")
+        check(trainer.train_state.step == 2 and len(history) == 1 and all(np.isfinite(history)),
+              f"imagenet_resnet50_kd: {trainer.train_state.step} steps, losses {history}")
+        check(len(valid) == 1 and np.isfinite(list(valid[0].values())).all(), f"KD validation results {valid}")
+        check(not changed, f"the KD recipe changed the teacher's {changed[:5]}")
+        check(len(moved) > len(student0) // 2, f"the KD recipe left the student where it was ({len(moved)} moved)")
+        check_evaluate_checkpoint(torch, cfg, cfg["experiment_name"], trainer.ckpt_dir, ckpt_root, "22b", fault="ema")
+    finally:
+        if previous_mirror is None:
+            os.environ.pop("SG_PRETRAINED_DIR", None)
+        else:
+            os.environ["SG_PRETRAINED_DIR"] = previous_mirror
+    del student, trainer, trained_teacher
+    torch.cuda.empty_cache()
+    print(f"[22b] recipe seconds {time.perf_counter() - t_phase:.1f}")
+
+    # one fp32 KD step of a cut pair on the card and on the CPU, held to an fp64 CPU step
+    gen = torch.Generator().manual_seed(23)
+    x, y = torch.rand((8, 3, 32, 32), generator=gen), torch.randint(0, 10, (8,), generator=gen)
+    student_sd = models.get("resnet18_cifar", num_classes=10, seed=1, device="cpu").net.state_dict()
+    teacher32 = models.get("resnet18_cifar", num_classes=10, seed=2, device="cpu").net.state_dict()
+    tf32_before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = kd_fp32_step(torch, models, "cuda", torch.float32, x, y, teacher32, student_sd)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32_before
+    cpu = kd_fp32_step(torch, models, "cpu", torch.float32, x, y, teacher32, student_sd)
+    ref = kd_fp32_step(torch, models, "cpu", torch.float64, x, y, teacher32, student_sd)
+    keys = [k for k in ref if ref[k].is_floating_point()]
+
+    def dist(a):
+        return float(sum(((a[k] - ref[k]) ** 2).sum() for k in keys) ** 0.5)
+
+    moved = float(sum(((ref[k] - student_sd[k].double()) ** 2).sum() for k in keys) ** 0.5)
+    print(f"[22b] one fp32 KD SGD step of resnet18_cifar from resnet18_cifar at 32 px, b8 (TF32 off): the student's "
+          f"distance to the fp64 CPU step: card {dist(card):.3e}, CPU {dist(cpu):.3e} (limit 2x); the step moved it "
+          f"{moved:.3e}")
+    check(dist(card) <= 2 * dist(cpu), f"the card's fp32 KD step lands {dist(card)} from fp64, the CPU's {dist(cpu)}")
+    check(moved > 1e3 * dist(cpu), "the fp32 KD step did not move the student")
+
+    # cityscapes_kd_base's step on a batch of phase 15(d)'s tree
+    seg_cuts = [f"dataset_params.{s}_dataset_params.root={cityscapes_root}" for s in ("train", "val")]
+    seg_cfg = config.load_recipe("cityscapes_kd_base", overrides=seg_cuts)
+    loader = Trainer._loader_from_cfg(seg_cfg, "train")
+    seg_images, seg_targets = next(iter(loader))
+    close_loader(loader)
+    check(tuple(seg_images.shape) == (SEG_KD_STEP_B, 3, 512, 1024), f"cityscapes_kd_base batch {tuple(seg_images.shape)}")
+    seg_batch = (seg_images.cuda().float().contiguous(memory_format=torch.channels_last), seg_targets.cuda())
+    kd_step_by_part(torch, "22b", "cityscapes_kd_base", seg_cuts, SEG_KD_STEP_B, (512, 1024), seg_batch)
+    del seg_batch, seg_images, seg_targets
+    torch.cuda.empty_cache()
+    launched = nms_exact.exact_nms_keep.launches - launches_before
+    check(launched == 0, f"phase 22(b) launched K1 {launched} times; KD has no NMS")
+    print(f"[22b] seconds {time.perf_counter() - t_phase:.1f}; K1 launches {launched}")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "super_gradients_tpu_torch")):
         print("chip_smoke: super_gradients_tpu_torch/ is not next to this script; run it from a checkout", file=sys.stderr)
@@ -4614,12 +5036,22 @@ def main():
                 ddp_launches = phase_ddp(torch, np, root, one_process_ms)
             with tempfile.TemporaryDirectory(prefix="chip_smoke_seg_zoo_") as root:
                 phase_seg_zoo(torch, np, nms_exact, root, cityscapes_root=os.path.join(seg_root, "cityscapes"))
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_shelfnet_") as root:
-            phase_shelfnet(torch, np, nms_exact, root)
-        with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_zoo_") as root:
-            phase_cls_zoo(torch, np, nms_exact, root, imagenet_root=os.path.join(cls_root, "imagenet"))
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_shelfnet_") as root:
+                phase_shelfnet(torch, np, nms_exact, root)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_cls_zoo_") as root:
+                phase_cls_zoo(torch, np, nms_exact, root, imagenet_root=os.path.join(cls_root, "imagenet"))
+            t_phase = time.perf_counter()
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as root:
+                export_launches, export_err = phase_export(torch, np, nms_exact,
+                                                           matched_fraction_fn(torch, np, bbox.box_iou), bbox.box_iou,
+                                                           root)
+            max_err = max(max_err, export_err)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_kd_") as root:
+                phase_kd(torch, np, nms_exact, root, imagenet_root=os.path.join(cls_root, "imagenet"),
+                         cityscapes_root=os.path.join(seg_root, "cityscapes"))
+            print(f"[22] phase seconds {time.perf_counter() - t_phase:.1f}; K1 launches in phase 22: {export_launches}")
 
-    print(f"chip_smoke: phases 1-21 passed in {time.perf_counter() - t_script:.1f} s")
+    print(f"chip_smoke: phases 1-22 passed in {time.perf_counter() - t_script:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(f"gpu: {smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else 'nvidia-smi unavailable'}")
@@ -4627,7 +5059,7 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "exact_nms_keep", "route": "cuda", "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
         "launches": launches + train_launches + recipe_launches + surface_launches + pose_launches + zoo_launches
-        + ssd_launches + ddp_launches,
+        + ssd_launches + ddp_launches + export_launches,
         "max_abs_err": max_err, "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
         "library_ms": None,  # PyTorch has no call for greedy NMS (torchvision.ops.nms is not PyTorch)

@@ -2,7 +2,8 @@
 ``super_gradients_tpu/conversion/torch_converter.py`` for YOLO-NAS, PP-YOLOE, YOLOX,
 YOLO-NAS-POSE, the ResNet family, STDC classification, the STDC, PP-LiteSeg, DDRNet, RegSeg,
 UNet, SegFormer, ShelfNet and LadderNet segmentation models, MobileNet V1 / V2 / V3, SSD and the
-rest of the classification zoo).
+rest of the classification zoo), and a knowledge-distillation composite of two of them
+(``kd_variables_from_jax_to_torch``).
 
 The JAX package names its flax modules after the original super-gradients
 attributes and maps them with regex rules; this module carries a jax-free copy
@@ -588,17 +589,44 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return flat
 
 
-def variables_from_jax_to_torch(variables_np: Mapping, rules: Rules = YOLO_NAS_RULES) -> Dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` trees of numpy arrays -> torch ``state_dict``."""
-    state_dict: Dict[str, torch.Tensor] = {}
+def _torch_entries(variables_np: Mapping, rules: Rules):
+    """(torch name, value in the torch layout) of each tensor of the JAX trees, the batch statistics of
+    modules without parameters dropped."""
     param_modules = {path[:-1] for path in _flatten(variables_np.get("params", {}))}
     for collection, tree in variables_np.items():
         for path, value in _flatten(tree).items():
             if collection == "batch_stats" and path[:-1] not in param_modules:
                 continue
             name = _translate(path, rules)
-            arr = _to_torch_layout(np.asarray(value), path, name[: -len(".weight")])
-            state_dict[name] = torch.tensor(np.ascontiguousarray(arr))
+            yield name, _to_torch_layout(np.asarray(value), path, name[: -len(".weight")])
+
+
+def variables_from_jax_to_torch(variables_np: Mapping, rules: Rules = YOLO_NAS_RULES) -> Dict[str, torch.Tensor]:
+    """``{"params": ..., "batch_stats": ...}`` trees of numpy arrays -> torch ``state_dict``."""
+    state_dict = {name: torch.tensor(np.ascontiguousarray(arr)) for name, arr in _torch_entries(variables_np, rules)}
     for key in [k for k in state_dict if k.endswith(".running_mean")]:
         state_dict[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return state_dict
+
+
+def state_dict_shapes_from_jax(shapes: Mapping, rules: Rules = YOLO_NAS_RULES) -> Dict[str, Tuple[int, ...]]:
+    """The names and shapes of :func:`variables_from_jax_to_torch`'s ``state_dict`` for trees whose
+    leaves have a ``shape`` (arrays, ``jax.ShapeDtypeStruct``), nothing allocated."""
+    def views(tree):
+        return {k: views(v) if isinstance(v, Mapping) else np.broadcast_to(np.float32(0), v.shape) for k, v in tree.items()}
+
+    out = {name: tuple(arr.shape) for name, arr in _torch_entries(views(shapes), rules)}
+    for key in [k for k in out if k.endswith(".running_mean")]:
+        out[key[: -len("running_mean")] + "num_batches_tracked"] = ()
+    return out
+
+
+def kd_variables_from_jax_to_torch(variables_np: Mapping, student_rules: Rules, teacher_rules: Rules) -> Dict[str, torch.Tensor]:
+    """A JAX ``KDModule``'s variables (``params`` / ``batch_stats`` trees with ``student`` and
+    ``teacher`` subtrees) -> the port's ``kd_module`` ``state_dict`` (``student.*`` / ``teacher.*``),
+    each net through its own rules."""
+    state_dict: Dict[str, torch.Tensor] = {}
+    for role, rules in (("student", student_rules), ("teacher", teacher_rules)):
+        sub = {collection: tree[role] for collection, tree in variables_np.items() if role in tree}
+        state_dict.update({f"{role}.{k}": v for k, v in variables_from_jax_to_torch(sub, rules).items()})
     return state_dict

@@ -53,6 +53,11 @@ class Processing:
     def postprocess_segmentation(self, seg_map: np.ndarray, meta: ProcessingMetadata) -> np.ndarray:
         return seg_map
 
+    def get_equivalent_photometric_fn(self):
+        """This op's photometric effect as a function on ``[B, H, W, 3]`` tensors, which an
+        exported program traces (``conversion/export.py``); None for a geometric op."""
+        return None
+
 
 def cv2_module():
     """The cv2 module where it imports, else None. The port's image code takes the JAX
@@ -198,6 +203,10 @@ class StandardizeImage(Processing):
     def preprocess_image(self, image):
         return image.astype(np.float32) / self.max_value, ProcessingMetadata(original_hw=image.shape[:2])
 
+    def get_equivalent_photometric_fn(self):
+        max_value = self.max_value
+        return lambda x: x / max_value
+
 
 class NormalizeImage(Processing):
     """``(image - mean) / std`` per channel, in float32."""
@@ -208,6 +217,11 @@ class NormalizeImage(Processing):
 
     def preprocess_image(self, image):
         return (image.astype(np.float32) - self.mean) / self.std, ProcessingMetadata(original_hw=image.shape[:2])
+
+    def get_equivalent_photometric_fn(self):
+        """float32 mean and std: a bf16 input computes in float32, as the JAX function promotes."""
+        mean, std = self.mean.copy(), self.std.copy()
+        return lambda x: (x - torch.as_tensor(mean, device=x.device)) / torch.as_tensor(std, device=x.device)
 
 
 class Resize(Processing):
@@ -376,12 +390,29 @@ class ReverseImageChannels(Processing):
     def preprocess_image(self, image):
         return image[..., ::-1], ProcessingMetadata(original_hw=image.shape[:2])
 
+    def get_equivalent_photometric_fn(self):
+        return lambda x: x.flip(-1)
+
 
 class ComposeProcessing(Processing):
     """Sequential composition; the metadata is the list of (op, metadata) pairs."""
 
     def __init__(self, processings: Sequence[Processing]):
         self.processings = list(processings)
+
+    def get_equivalent_photometric_fn(self):
+        """The photometric members' functions in order (geometric ones contribute none);
+        None when no member has one."""
+        fns = [f for f in (p.get_equivalent_photometric_fn() for p in self.processings) if f is not None]
+        if not fns:
+            return None
+
+        def composed(x):
+            for f in fns:
+                x = f(x)
+            return x
+
+        return composed
 
     def preprocess_image(self, image):
         metas: List[Tuple[Processing, ProcessingMetadata]] = []

@@ -1,5 +1,5 @@
 """Architecture registrations of the port (every row of
-``super_gradients_tpu/models/all_models.py`` but DEKR, the pose rescoring nets and ``kd_module``)."""
+``super_gradients_tpu/models/all_models.py`` but DEKR and the pose rescoring nets)."""
 
 from __future__ import annotations
 
@@ -875,3 +875,34 @@ def csp_darknet53(num_classes=None, arch_params=None, **kw):
     """The classifier on the YOLOX CSPDarknet trunk, as in the JAX zoo."""
     nc = num_classes or 1000
     return _cls_spec(darknet.CSPDarknet53(num_classes=nc), nc)
+
+
+@register_model("kd_module")
+def kd_module(num_classes=None, arch_params=None, **kw):
+    """The knowledge-distillation composite (``training/losses/kd_losses.py::KDModule``):
+    ``arch_params`` names the ``student`` and the ``teacher`` (or ``student_architecture`` /
+    ``teacher_architecture``), registered names or built networks, with their
+    ``<name>_arch_params`` or ``student_arch_params`` / ``teacher_arch_params``. As in the JAX
+    zoo, a name equal to the student's takes the student's arch_params, and the composite is a
+    1000-class classification model at 224 unless ``num_classes`` says otherwise."""
+    from super_gradients_tpu_torch.models.model_factory import get_architecture
+    from super_gradients_tpu_torch.training.losses.kd_losses import KDModule
+
+    ap = dict(arch_params or {})
+    ap.setdefault("student", ap.get("student_architecture"))
+    ap.setdefault("teacher", ap.get("teacher_architecture"))
+    if not ap.get("student") or not ap.get("teacher"):
+        raise ValueError("kd_module requires arch_params with `student`/`teacher` "
+                         "(or student_architecture/teacher_architecture)")
+
+    def resolve(entry):
+        if isinstance(entry, str):
+            params = ap.get(f"{entry}_arch_params") or ap.get(
+                "student_arch_params" if entry == ap["student"] else "teacher_arch_params")
+            return get_architecture(entry)(num_classes=num_classes, arch_params=params or {}).net
+        return entry
+
+    student, teacher = resolve(ap["student"]), resolve(ap["teacher"])
+    nc = num_classes or ap.get("num_classes", 1000)
+    return ModelSpec(net=KDModule(student, teacher), num_classes=nc, input_hw=(224, 224),
+                     model_cls=ClassificationModel)

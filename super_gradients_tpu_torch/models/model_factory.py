@@ -120,7 +120,8 @@ def get(
     _calibrate_batch_norm(spec.net, generator, (2, 3, *(spec.init_hw or spec.input_hw)))
     model = spec.model_cls(
         name=model_name, net=spec.net, num_classes=spec.num_classes, config=spec.config,
-        processing=spec.processing, class_names=spec.class_names, device=device, **spec.model_kwargs,
+        processing=spec.processing, class_names=spec.class_names, device=device, input_hw=spec.input_hw,
+        **spec.model_kwargs,
     )
     if pretrained_weights is not None:
         from super_gradients_tpu_torch.inference.processing import get_pretrained_processing_params

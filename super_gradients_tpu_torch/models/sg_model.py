@@ -55,6 +55,7 @@ class SgModel:
         processing: Optional[Processing] = None,
         class_names: Optional[List[str]] = None,
         device="cuda",
+        input_hw: Tuple[int, int] = (224, 224),
     ):
         self.name = name
         self.device = torch.device(device)
@@ -66,6 +67,7 @@ class SgModel:
         self.config = config
         self._processing = processing
         self._class_names = class_names
+        self._input_hw = tuple(input_hw)  # the size an export takes unless told another
         self._deploy_nets: Dict[Tuple[bool, bool], nn.Module] = {}  # derived from net's weights
 
     @property
@@ -116,6 +118,20 @@ class SgModel:
 
     def predict(self, images, **kwargs):
         raise NotImplementedError(f"predict() is not implemented for task `{self.task}`")
+
+    def export(self, output_path: str, **kwargs):
+        """Write the fused inference program of this model's task to a ``torch.export``
+        artifact (``conversion/export.py``): detection, pose estimation or segmentation."""
+        from super_gradients_tpu_torch.conversion import export as export_mod
+
+        fn = {
+            "detection": export_mod.export_detection_model,
+            "pose_estimation": export_mod.export_pose_estimation_model,
+            "segmentation": export_mod.export_segmentation_model,
+        }.get(self.task)
+        if fn is None:
+            raise NotImplementedError(f"export() is not supported for task `{self.task}`")
+        return fn(self, output_path, **kwargs)
 
     def predict_video(self, video_path: str, batch_size: int = 32, max_frames: Optional[int] = None,
                       **kwargs) -> VideoPredictions:

@@ -8,9 +8,14 @@ pallas_exact_nms_keep`` (and the XLA loop ``ops/nms.py::_exact_keep_mask``)::
 over score-sorted boxes. The CUDA kernel (``csrc/nms_exact.cu``) is a blocked bitmask
 NMS: one pass writes the pairwise IoU > t bits of the valid boxes in 64-box tiles; a
 sweep, one block per image, resolves each tile serially on a register and suppresses
-the later tiles in parallel, up to the image's last valid box. :func:`exact_nms_keep`
-launches it for CUDA tensors and runs :func:`exact_nms_keep_plain` for CPU tensors;
-there is no fallback between the two.
+the later tiles in parallel, up to the image's last valid box.
+
+:func:`exact_nms_keep` checks its inputs and calls the ``torch.library`` custom op
+``sg_torch::nms_exact_keep``: its CUDA implementation launches the kernel, its CPU
+implementation is :func:`exact_nms_keep_plain`, and its fake kernel gives ``valid``'s shape
+as bool, so that ``torch.export`` traces a program through it (``conversion/export.py``)
+and the exported program launches the kernel on a GPU. There is no fallback between the
+two implementations.
 """
 
 from __future__ import annotations
@@ -50,34 +55,21 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def exact_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Greedy NMS keep mask.
+@torch.library.custom_op("sg_torch::nms_exact_keep", mutates_args=(), device_types="cpu")
+def nms_exact_keep_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return exact_nms_keep_plain(boxes, valid, iou_threshold)
 
-    Args:
-        boxes: ``[B, K, 4]`` float32 xyxy, contiguous, sorted by descending score
-            within each image (class-offset for class-aware NMS).
-        valid: ``[B, K]`` bool, contiguous, on the same device.
-        iou_threshold: a box is suppressed by a kept earlier box when IoU > this.
 
-    Returns ``[B, K]`` bool. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (``exact_nms_keep.launches`` counts the launches).
-    """
-    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
-        raise ValueError(f"boxes must be [B, K, 4] float32, got {tuple(boxes.shape)} {boxes.dtype}")
-    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(boxes.shape[:2]):
-        raise ValueError(f"valid must be bool {tuple(boxes.shape[:2])}, got {tuple(valid.shape)} {valid.dtype}")
-    if valid.device != boxes.device:
-        raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
-    if not (boxes.is_contiguous() and valid.is_contiguous()):
-        raise ValueError("boxes and valid must be contiguous")
-    if boxes.device.type == "cpu":
-        return exact_nms_keep_plain(boxes, valid, iou_threshold)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"exact_nms_keep runs on cpu or cuda tensors, got {boxes.device}")
+@nms_exact_keep_op.register_fake
+def _nms_exact_keep_fake(boxes, valid, iou_threshold):
+    return torch.empty_like(valid, memory_format=torch.contiguous_format)
 
+
+@nms_exact_keep_op.register_kernel("cuda")
+def _nms_exact_keep_cuda(boxes, valid, iou_threshold):
+    """The op's CUDA implementation: one launch of both passes on the current stream."""
     b, k, _ = boxes.shape
-    if k > MAX_K or b > MAX_BATCH:
-        raise ValueError(f"exact_nms_keep supports B <= {MAX_BATCH} and K <= {MAX_K}, got B={b}, K={k}")
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     if b == 0 or k == 0:
         return keep
@@ -93,6 +85,35 @@ def exact_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: floa
         raise RuntimeError(f"nms_exact kernel launch failed: {lib.sg_cuda_error_string(err).decode()} ({err})")
     exact_nms_keep.launches += 1
     return keep
+
+
+def exact_nms_keep(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask.
+
+    Args:
+        boxes: ``[B, K, 4]`` float32 xyxy, contiguous, sorted by descending score
+            within each image (class-offset for class-aware NMS).
+        valid: ``[B, K]`` bool, contiguous, on the same device.
+        iou_threshold: a box is suppressed by a kept earlier box when IoU > this.
+
+    Returns ``[B, K]`` bool through the op ``sg_torch::nms_exact_keep``: CPU tensors take
+    the plain version; CUDA tensors launch the kernel (``exact_nms_keep.launches`` counts
+    the launches).
+    """
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or boxes.dtype != torch.float32:
+        raise ValueError(f"boxes must be [B, K, 4] float32, got {tuple(boxes.shape)} {boxes.dtype}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"valid must be bool {tuple(boxes.shape[:2])}, got {tuple(valid.shape)} {valid.dtype}")
+    if valid.device != boxes.device:
+        raise ValueError(f"boxes on {boxes.device} but valid on {valid.device}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("boxes and valid must be contiguous")
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"exact_nms_keep runs on cpu or cuda tensors, got {boxes.device}")
+    b, k, _ = boxes.shape
+    if boxes.device.type == "cuda" and (k > MAX_K or b > MAX_BATCH):
+        raise ValueError(f"exact_nms_keep supports B <= {MAX_BATCH} and K <= {MAX_K}, got B={b}, K={k}")
+    return nms_exact_keep_op(boxes, valid, float(iou_threshold))
 
 
 exact_nms_keep.launches = 0

@@ -4,11 +4,12 @@
 points of its loop as the JAX trainer, with one mutable :class:`PhaseContext`.
 Ported: the event protocol, ``EarlyStop``, ``TimerCallback``, ``LRCallbackBase``,
 ``ProfilerCallback`` (on ``torch.profiler``), ``PPYoloETrainingStageSwitchCallback``,
-``YoloXTrainingStageSwitchCallback``, ``SlidingWindowValidationCallback`` and the
+``YoloXTrainingStageSwitchCallback``, ``SlidingWindowValidationCallback``,
+``ModelConversionCheckCallback`` (an export round trip at training start) and the
 detection and segmentation visualization callbacks, which draw a batch's predictions
-(``inference/prediction_results.py``) into the logger's ``add_image``. Names the JAX
-package registers beyond these are listed in :data:`NOT_PORTED` with their ROADMAP
-item; resolving one raises ``KeyError``.
+(``inference/prediction_results.py``) into the logger's ``add_image``: every name the
+JAX package registers. A name listed in :data:`NOT_PORTED` with its ROADMAP item (none
+is left) raises ``KeyError`` when resolved.
 """
 
 from __future__ import annotations
@@ -28,9 +29,7 @@ from super_gradients_tpu_torch.training.dataloaders import loader_max_value
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED = {
-    "ModelConversionCheckCallback": "ROADMAP.md queue 1, 'Deployment and scale-out' (export)",
-}
+NOT_PORTED: Dict[str, str] = {}
 
 
 class Phase(str, enum.Enum):
@@ -560,3 +559,30 @@ class SlidingWindowValidationCallback(Callback):
         context.metrics_dict["sliding_window_detections"] = total
         if context.sg_logger is not None:
             context.sg_logger.add_scalar("Valid/sliding_window_detections", total, context.epoch)
+
+
+@register_callback("ModelConversionCheckCallback")
+class ModelConversionCheckCallback(Callback):
+    """At training start, export the detection model (``conversion/export.py``) at
+    ``image_size`` and ``batch_size`` and load the artifact back, so that a model that does not
+    export fails before the epochs; other tasks are skipped with a warning. The artifact goes
+    to ``out_path``, else to ``<tempdir>/<experiment>_conversion_check.pt2``."""
+
+    def __init__(self, image_size: int = 320, batch_size: int = 1, out_path: Optional[str] = None):
+        self.image_size = image_size
+        self.batch_size = batch_size
+        self.out_path = out_path
+
+    def on_training_start(self, context: PhaseContext):
+        import tempfile
+
+        model = context.model
+        if getattr(model, "task", None) != "detection":
+            logger.warning("ModelConversionCheckCallback: only detection export is checked — skipping")
+            return
+        from super_gradients_tpu_torch.conversion.export import export_detection_model, load_exported
+
+        path = self.out_path or os.path.join(tempfile.gettempdir(), f"{context.experiment_name}_conversion_check.pt2")
+        export_detection_model(model, path, image_hw=(self.image_size, self.image_size), batch_size=self.batch_size)
+        load_exported(path)
+        logger.info(f"ModelConversionCheckCallback: export round-trip OK ({path})")

@@ -2,7 +2,10 @@
 
 An fp32 shadow of the network's parameters and floating-point buffers (the
 BatchNorm running mean and variance; ``num_batches_tracked`` is not averaged),
-updated after each optimizer step with the decay of the step count before it.
+updated after each optimizer step with the decay of the step count before it. Tensors
+that never change are not averaged and stay bit for bit: frozen parameters
+(``requires_grad`` off) and, in a network built in train mode, the buffers of the modules
+held in eval mode (a knowledge-distillation teacher).
 """
 
 from __future__ import annotations
@@ -28,9 +31,13 @@ def make_decay_fn(decay: float = 0.9999, decay_type: str = "exp", beta: float = 
 
 
 def _tracked(net: nn.Module) -> Dict[str, torch.Tensor]:
-    """The tensors the EMA follows: parameters and floating-point buffers, by state_dict name."""
-    out = {name: p for name, p in net.named_parameters()}
-    out.update({name: b for name, b in net.named_buffers() if b.is_floating_point()})
+    """The tensors the EMA follows, by state_dict name: trainable parameters, and the
+    floating-point buffers of the modules that train with the network."""
+    out = {name: p for name, p in net.named_parameters() if p.requires_grad}
+    for prefix, module in net.named_modules():
+        if module.training or not net.training:
+            out.update({f"{prefix}.{name}" if prefix else name: b
+                        for name, b in module.named_buffers(recurse=False) if b.is_floating_point()})
     return out
 
 

@@ -1,7 +1,8 @@
 """Loss registry surface of the port (counterpart of
 ``super_gradients_tpu/training/losses/__init__.py``; the classification and segmentation
 losses, PPYoloELoss, YoloXDetectionLoss, YoloNASPoseLoss and SSDLoss so far; the segmentation
-ones include ShelfNet's two and MaskAttentionLoss)."""
+ones include ShelfNet's two, MaskAttentionLoss and the channel-wise distillation loss ``SegKDLoss`` /
+``CWDKlDivLoss``; ``KDLogitsLoss``)."""
 
 from super_gradients_tpu_torch.common.registry import LOSSES
 from super_gradients_tpu_torch.training.losses.classification_losses import (  # noqa: F401
@@ -11,11 +12,13 @@ from super_gradients_tpu_torch.training.losses.classification_losses import (  #
     MSELoss,
     RSquaredLoss,
 )
+from super_gradients_tpu_torch.training.losses.kd_losses import KDLogitsLoss  # noqa: F401
 from super_gradients_tpu_torch.training.losses.ppyolo_loss import PPYoloELoss  # noqa: F401
 from super_gradients_tpu_torch.training.losses.ssd_loss import SSDLoss  # noqa: F401
 from super_gradients_tpu_torch.training.losses.segmentation_losses import (  # noqa: F401
     BCEDiceLoss,
     BinaryDiceLoss,
+    ChannelWiseKnowledgeDistillationLoss,
     DiceCEEdgeLoss,
     DiceLoss,
     MaskAttentionLoss,

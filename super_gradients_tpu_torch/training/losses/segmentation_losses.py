@@ -309,3 +309,25 @@ class MaskAttentionLoss:
         mask_term = (per_pixel * fg).sum() / global_normalizer(fg.sum())
         loss = self.loss_weights[0] * base + self.loss_weights[1] * mask_term
         return loss, {"loss_base": base, "loss_mask": mask_term}
+
+
+@register_loss("CWDKlDivLoss")
+@register_loss("SegKDLoss")
+class ChannelWiseKnowledgeDistillationLoss:
+    """Channel-wise distillation of a :class:`~super_gradients_tpu_torch.training.losses.kd_losses.KDOutput`:
+    for each image and channel, the KL divergence from the teacher's softmax over the ``H * W``
+    pixels to the student's, at temperature ``tau``, averaged over ``[B, C]`` and times
+    ``tau**2`` (the first map of a tuple output; ``targets`` are not read)."""
+
+    def __init__(self, temperature: float = 4.0, normalization_mode: str = "channel_wise"):
+        self.temperature = temperature
+
+    def __call__(self, outputs, targets=None) -> Tuple[torch.Tensor, Dict]:
+        s, t = _main(outputs.student_output), _main(outputs.teacher_output)
+        tau = self.temperature
+        b, c = s.shape[:2]
+        s_logp = F.log_softmax(s.reshape(b, c, -1) / tau, dim=2)
+        t_p = F.softmax(t.reshape(b, c, -1) / tau, dim=2)
+        kl = torch.sum(t_p * (torch.log(t_p + 1e-12) - s_logp), dim=2)  # [B, C]
+        loss = global_mean(kl) * (tau**2)
+        return loss, {"cwd_loss": loss}

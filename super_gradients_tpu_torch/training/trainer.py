@@ -33,8 +33,13 @@ in ``DistributedDataParallel``; each rank steps on its slice of every global bat
 losses normalize over the global batch, the logged losses and every metric are global,
 and only rank 0 writes checkpoints, ``recipe.json`` and the logs.
 
-Precise BN, QAT and KD are not ported yet: a training parameter that asks for one
-of them raises ``NotImplementedError`` naming its ROADMAP item.
+Knowledge distillation: a ``kd_module`` model (``training/losses/kd_losses.py::KDModule``)
+trains through the plain ``Trainer`` with its ``teacher`` frozen (no update, no weight decay,
+eval mode) and its metrics read the student's outputs; ``training/kd_trainer.py::KDTrainer``
+builds the composite from a student and a teacher and hands the student back.
+
+Precise BN and QAT are not ported yet: a training parameter that asks for one of them
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -166,24 +171,36 @@ def _metrics_view(out):
     return out.student_output if hasattr(out, "student_output") else out
 
 
-def _images_to_device(images: torch.Tensor, device: torch.device, max_value: Optional[float] = None) -> torch.Tensor:
+def channels_last_training(device: torch.device, mixed_precision: bool) -> bool:
+    """Whether a train copy and its batches take channels_last: on a GPU under the bf16 policy
+    only. An fp32 network there stays NCHW, because cuDNN's channels_last train-mode BatchNorm
+    (its persistent NHWC kernel, which no TF32 switch governs) puts fp32 gradients ~1e-3 off
+    fp64 where NCHW stays within fp32 rounding (a ResNet-18-CIFAR step on an H100: 0.117 against
+    7.7e-5, the CPU's 3.0e-5, in gradient L2 distance)."""
+    return device.type == "cuda" and mixed_precision
+
+
+def _images_to_device(images: torch.Tensor, device: torch.device, max_value: Optional[float] = None,
+                      channels_last: bool = True) -> torch.Tensor:
     """A host image batch onto the device: a pinned copy ``non_blocking``, channels_last on
-    a GPU. A uint8 batch is standardized there, ``x * float32(1 / max_value)`` in float32,
-    bit-equal to the host's ``DetectionStandardize``; a float batch passes unchanged."""
+    a GPU unless ``channels_last`` is off. A uint8 batch is standardized there,
+    ``x * float32(1 / max_value)`` in float32, bit-equal to the host's ``DetectionStandardize``;
+    a float batch passes unchanged."""
     images = images.to(device, non_blocking=True)
     if images.dtype == torch.uint8:
         if max_value is None:
             raise ValueError("a uint8 image batch needs a `max_value` on its loader or its loader's dataset "
                              "to be standardized on the device")
         images = images.float().mul_(float(np.float32(1.0 / max_value)))
-    if device.type == "cuda":
+    if device.type == "cuda" and channels_last:
         images = images.contiguous(memory_format=torch.channels_last)
     return images
 
 
-def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device, max_value: Optional[float] = None):
+def _to_device(images: torch.Tensor, targets: torch.Tensor, device: torch.device, max_value: Optional[float] = None,
+               channels_last: bool = True):
     """A host batch onto the device: :func:`_images_to_device` and the targets as they are."""
-    return _images_to_device(images, device, max_value), targets.to(device, non_blocking=True)
+    return _images_to_device(images, device, max_value, channels_last), targets.to(device, non_blocking=True)
 
 
 class TrainStep:
@@ -290,7 +307,8 @@ class Trainer:
 
     def prepare(self, model, training_params: Dict, steps_per_epoch: int) -> TrainStep:
         """The :class:`TrainStep` that ``train()`` runs for these parameters, over a
-        fresh copy of ``model.net`` in train mode (channels_last on a GPU)."""
+        fresh copy of ``model.net`` in train mode (channels_last on a GPU under the bf16 policy,
+        :func:`channels_last_training`)."""
         tp = training_params if isinstance(training_params, _TrackedParams) else self._tracked_params(training_params)
         max_epochs = int(tp["max_epochs"])
         batch_accumulate = int(tp.get("batch_accumulate") or 1)
@@ -320,12 +338,15 @@ class Trainer:
         )
 
         net = copy.deepcopy(model.net).train()
-        if model.device.type == "cuda":
+        if channels_last_training(model.device, bool(tp.get("mixed_precision"))):
             net = net.to(memory_format=torch.channels_last)
         if is_distributed():
             convert_batch_norm(net)  # statistics over the global batch (one rank's batch is the global one)
         # frozen parameters get no update and no weight decay: they stay out of the optimizer
         frozen = list(tp.get("frozen_param_patterns") or [])
+        if hasattr(net, "student") and hasattr(net, "teacher") and "teacher" not in frozen:
+            frozen.append("teacher")
+            logger.info("kd_module detected: freezing `teacher` subtree (no updates, no weight decay)")
         trainable = []
         for name, p in net.named_parameters():
             if any(pattern in name for pattern in frozen):
@@ -474,7 +495,8 @@ class Trainer:
                         break
                     context.update_context(batch_idx=batch_idx, step=state.step, train_batch=batch)
                     handler.on_train_batch_start(context)
-                    images, targets = _to_device(batch[0], batch[1], device, train_max_value)
+                    images, targets = _to_device(batch[0], batch[1], device, train_max_value,
+                                                 channels_last_training(device, step.mixed_precision))
                     loss, outputs = step.run(images, targets)
                     lr = step.lr_schedule((state.step - 1) // batch_accumulate)
                     if has_train_metrics:
@@ -589,7 +611,8 @@ class Trainer:
                 break
             if context is not None:
                 context.update_context(batch_idx=vidx, valid_batch=batch)
-            images, targets = _to_device(batch[0], batch[1], device, dataloaders.loader_max_value(loader))
+            images, targets = _to_device(batch[0], batch[1], device, dataloaders.loader_max_value(loader),
+                                         channels_last_training(device, mixed_precision))
             with torch.inference_mode():
                 with autocast(device, mixed_precision):
                     outputs = net(images)
@@ -743,13 +766,14 @@ class Trainer:
     def _model_from_cfg(cfg: Dict):
         """``models.get`` with the recipe's ``checkpoint_params`` (``checkpoint_path``,
         ``pretrained_weights``, ``checkpoint_num_classes``, ``load_backbone``,
-        ``strict_load``), on the recipe's ``device`` (the GPU unless it says ``cpu``)."""
+        ``strict_load``), on the recipe's ``device`` (the GPU unless it says ``cpu``). A
+        ``kd_module``'s teacher loads ``teacher_pretrained_weights`` (the local mirror, as
+        ``pretrained_weights``) or ``teacher_checkpoint_path``; a model without a teacher
+        ignores them, as in the JAX trainer."""
         from super_gradients_tpu_torch import models
 
         cp = cfg.get("checkpoint_params") or {}
-        if cp.get("teacher_pretrained_weights") or cp.get("teacher_checkpoint_path"):
-            raise NotImplementedError(f"knowledge distillation (a teacher in checkpoint_params) is not ported yet ({_LATER})")
-        return models.get(
+        model = models.get(
             cfg["architecture"],
             num_classes=cfg.get("num_classes") or (cfg.get("arch_params") or {}).get("num_classes"),
             arch_params=cfg.get("arch_params"),
@@ -760,6 +784,25 @@ class Trainer:
             strict_load=cp.get("strict_load"),
             device=cfg.get("device") or "cuda",
         )
+        teacher_src = cp.get("teacher_pretrained_weights") or cp.get("teacher_checkpoint_path")
+        if teacher_src and hasattr(model.net, "teacher"):
+            ap = cfg.get("arch_params") or {}
+            teacher_name = ap.get("teacher") or ap.get("teacher_architecture")
+            if teacher_name is None:
+                raise ValueError("teacher_pretrained_weights set but arch_params has no teacher name")
+            teacher = models.get(
+                teacher_name,
+                num_classes=cfg.get("num_classes") or ap.get("num_classes"),
+                arch_params=ap.get("teacher_arch_params"),
+                pretrained_weights=cp.get("teacher_pretrained_weights"),
+                checkpoint_path=cp.get("teacher_checkpoint_path"),
+                device=model.device,
+            )
+            state = model.net.state_dict()
+            state.update({f"teacher.{k}": v for k, v in teacher.net.state_dict().items()})
+            model.load_state_dict(state)
+            logger.info(f"kd_module teacher `{teacher_name}` loaded from {teacher_src}")
+        return model
 
     @staticmethod
     def _loader_from_cfg(cfg: Dict, split: str):

@@ -1,8 +1,9 @@
 """The classification zoo's registry in the PyTorch port against the JAX package's.
 
 Every one of the 55 names builds, and each one's parameter count and ``state_dict`` (names and
-shapes, through ``conversion/from_jax.py``'s rules) equal the JAX spec's (``jax.eval_shape``,
-nothing compiled; a name whose JAX module equals another's, field for field, reuses its trace).
+shapes, through ``conversion/from_jax.py``'s rules: ``state_dict_shapes_from_jax``, which allocates
+nothing) equal the JAX spec's (``jax.eval_shape``, nothing compiled; a name whose JAX module equals
+another's, field for field, reuses its trace).
 Through ``models.get`` on the CPU (seeded init, BN calibration) at the registered size where that
 is at most 300 px and 150 M parameters; the others (EfficientNet B4-B8 and L2, ViT-Huge,
 BEiT-Large) through the registered function on ``torch.device("meta")``, which allocates nothing.
@@ -21,7 +22,7 @@ from super_gradients_tpu.models.model_factory import get_architecture
 from super_gradients_tpu_torch import models
 from super_gradients_tpu_torch.common.registry import ARCHITECTURES
 from super_gradients_tpu_torch.conversion import from_jax
-from super_gradients_tpu_torch.conversion.from_jax import variables_from_jax_to_torch
+from super_gradients_tpu_torch.conversion.from_jax import state_dict_shapes_from_jax, variables_from_jax_to_torch
 from super_gradients_tpu_torch.models.classification.misc_models import VGG_CFGS
 
 torch.set_num_threads(2)
@@ -60,8 +61,8 @@ def test_the_names_are_the_55_of_the_zoo():
     assert len(NAMES) == 55
     ported = set(ARCHITECTURES) & set(JAX_ARCHITECTURES)
     assert set(JAX_ARCHITECTURES) - ported == {"dekr_w32_no_dc", "dekr_custom", "pose_rescoring",
-                                               "pose_rescoring_coco", "pose_rescoring_custom", "kd_module"}
-    assert len(ported) == 129 and len(JAX_ARCHITECTURES) == 135
+                                               "pose_rescoring_coco", "pose_rescoring_custom"}
+    assert len(ported) == 130 and len(JAX_ARCHITECTURES) == 135
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -81,8 +82,17 @@ def test_every_name_builds_at_the_jax_parameter_count(name):
         net = spec.net
         assert tuple(spec.input_hw) == tuple(hw)
     assert sum(p.numel() for p in net.parameters()) == jax_count
-    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
-    expected = {k: tuple(v.shape) for k, v in variables_from_jax_to_torch(zeros, _rules(name)).items()}
+    expected = state_dict_shapes_from_jax(shapes, _rules(name))
     assert {k: tuple(v.shape) for k, v in net.state_dict().items()} == expected
+
+
+@pytest.mark.parametrize("name", ["regnetY200", "shufflenet_v2_x0_5"])
+def test_shape_only_conversion_names_what_the_converter_makes(name):
+    """``state_dict_shapes_from_jax`` (the test above's expectation, nothing allocated) gives the
+    names and shapes ``variables_from_jax_to_torch`` makes of the same tree in zeros."""
+    _, shapes = _jax_shapes(name)
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), shapes)
+    made = {k: tuple(v.shape) for k, v in variables_from_jax_to_torch(zeros, _rules(name)).items()}
+    assert state_dict_shapes_from_jax(shapes, _rules(name)) == made
 
 

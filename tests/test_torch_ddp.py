@@ -21,6 +21,9 @@ Tolerances:
   magnitude): the JAX loss casts the logits and the DFL distributions to float32 even
   under ``jax.enable_x64`` (JAX ``ppyolo_loss.py:343,367,381,400``), so the one-process
   fp64 port and it differ by ~5e-8 relative.
+- (c) ``KDLogitsLoss`` and ``SegKDLoss`` on fp64 logits split 4 + 4 and 3 + 4: the mean of
+  the ranks' losses and each rank's student gradient over the world size within 1e-12
+  relative of the one-process loss and gradient on the whole batch.
 - (d) ``DetectionMetrics`` over 2 ranks on a set whose scores repeat across images: equal
   (``==``) to the JAX ``DetectionMetrics`` on the whole set and to the port's one-process
   value; the ranks' values identical; a rank-major order of the same images gives
@@ -53,7 +56,8 @@ torch.set_num_threads(2)
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    return ranks.run_ranks("bn+loss+metrics+samplers+refusals+collectives", tmp_path_factory.mktemp("ddp"), timeout=240)
+    return ranks.run_ranks("bn+loss+kd_loss+metrics+samplers+refusals+collectives", tmp_path_factory.mktemp("ddp"),
+                           timeout=240)
 
 
 def _close(a, b, tol):
@@ -191,6 +195,15 @@ def test_ppyoloe_loss_over_ranks_equals_the_whole_batch(results, batch):
             np.testing.assert_allclose(v, comps[k], rtol=rtol, err_msg=k)
         for got, ref in zip(got_grads, grads):
             _close(got, ref, grad_tol)
+
+
+@pytest.mark.parametrize("batch", [8, 7], ids=["4+4", "3+4"])
+@pytest.mark.parametrize("name", list(ranks.KD_SHAPES))
+def test_kd_loss_over_ranks_equals_the_whole_batch(results, name, batch):
+    per_rank = [r["kd_loss"][name, batch] for r in results]
+    value, grad = ranks.kd_loss_value_and_grad(name, *ranks.kd_loss_case(name, batch))
+    np.testing.assert_allclose(np.mean([v for v, _ in per_rank]), value, rtol=1e-12)
+    _close(np.concatenate([g for _, g in per_rank]) / len(per_rank), grad, 1e-12)
 
 
 # ---------------------------------------------------------------- (d, e) metrics

@@ -210,6 +210,23 @@ def test_ema_decay_matches_jax(decay_type):
         np.testing.assert_allclose(got(step), float(ref(jnp.float32(step))), rtol=1e-6)
 
 
+def test_ema_keeps_tensors_that_never_change():
+    """Frozen parameters and the buffers of modules held in eval mode (a KD teacher) are not
+    averaged: they stay bit for bit whatever the decay."""
+    net = nn.Sequential(nn.Conv2d(2, 3, 1), nn.BatchNorm2d(3), nn.Conv2d(3, 3, 1), nn.BatchNorm2d(3))
+    net[0].weight.requires_grad_(False)
+    net[3].eval()
+    shadow = ema.ModelEMA(net)
+    assert "0.weight" not in shadow.names and "3.running_mean" not in shadow.names
+    assert {"0.bias", "1.running_mean", "1.running_var", "3.weight"} <= set(shadow.names)
+    with torch.no_grad():
+        net[0].bias.add_(1.0)
+    frozen = net[0].weight.clone()
+    shadow.update(0.3)
+    assert torch.equal(shadow.state_dict()["0.weight"], frozen)
+    assert not torch.equal(shadow.state_dict()["0.bias"], net[0].bias)
+
+
 def test_ema_follows_buffers_but_not_counters():
     net = nn.Sequential(nn.Conv2d(2, 3, 1), nn.BatchNorm2d(3))
     shadow = ema.ModelEMA(net)
@@ -254,15 +271,16 @@ def _model_stub():
     (dict(train_metrics_list=["DepthMAE"]), None, KeyError),
     (dict(valid_metrics_list=[{"DepthRMSE": {}}]), None, KeyError),
     (dict(valid_metrics_list=["DepthMSE"]), None, KeyError),
-    (dict(phase_callbacks=[{"ModelConversionCheckCallback": {}}]), None, KeyError),
+    (dict(valid_metrics_list=["DeltaMetric"]), None, KeyError),
     (dict(), "additional_callbacks", KeyError),
     (dict(phase_callbacks=["x"]), None, KeyError),
 ])
 def test_unported_training_params_raise(override, arg, error, tmp_path):
     """What stays unported raises and names its ROADMAP item (an unknown callback
-    name raises KeyError listing the registered ones)."""
-    kwargs = {arg: ["ModelConversionCheckCallback"]} if arg else {}
-    match = "Unknown callback" if override.get("phase_callbacks") == ["x"] else "ROADMAP"
+    name, in ``phase_callbacks`` or ``additional_callbacks``, raises KeyError listing the
+    registered ones: every callback name of the JAX package is ported)."""
+    kwargs = {arg: ["NoSuchCallback"]} if arg else {}
+    match = "Unknown callback" if override.get("phase_callbacks") == ["x"] or arg else "ROADMAP"
     with pytest.raises(error, match=match):
         trainer.Trainer("t", ckpt_root_dir=str(tmp_path)).train(
             _model_stub(), dict(loss=lambda o, t: None, save_model=False, **override), [], **kwargs)

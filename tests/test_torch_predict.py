@@ -238,10 +238,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
     """The port imports and predicts with jax, flax, cv2, PIL, yaml and the JAX package
     unavailable, and never imports them: every module of the recipe, data and predict
     surface (the pose, classification, segmentation, PP-YOLOE / YOLOX and MobileNet / SSD
-    modules and the rest of the classification zoo included) imports, detection (YOLO-NAS,
-    YOLOX, SSD-lite, tiled), pose, classification (ResNet, MobileNetV3, EfficientNet, ViT) and
-    segmentation
-    predict take the no-cv2 resizes, reading an image
+    modules, the rest of the classification zoo, export and knowledge distillation included)
+    imports, detection (YOLO-NAS, YOLOX, SSD-lite, tiled), pose, classification (ResNet,
+    MobileNetV3, EfficientNet, ViT) and segmentation predict take the no-cv2 resizes, YOLO-NAS
+    exports and its artifact reloads and runs, a ``kd_module`` gives a finite KD loss, reading an image
     or a YAML recipe raises
     an ImportError that names
     PIL or PyYAML, and, once PIL is back, a COCO-format dataset of PNGs runs one sample
@@ -297,6 +297,10 @@ def test_port_runs_with_jax_blocked(tmp_path):
         from super_gradients_tpu_torch.models.classification import darknet, dpn_pnasnet_beit, efficientnet
         from super_gradients_tpu_torch.models.classification import misc_models, more_models, regnet, repvgg, vit
         from super_gradients_tpu_torch.training.optimizers import Lion, RMSProp
+        from super_gradients_tpu_torch import train_from_kd_recipe
+        from super_gradients_tpu_torch.conversion import export
+        from super_gradients_tpu_torch.training import kd_trainer
+        from super_gradients_tpu_torch.training.losses import kd_losses
         from super_gradients_tpu_torch import setup_device
         assert setup_device is mesh.setup_device
         assert processing.cv2_module() is None
@@ -308,6 +312,15 @@ def test_port_runs_with_jax_blocked(tmp_path):
         preds = model.predict([rng.randint(0, 256, (64, 64, 3), dtype=np.uint8)])
         assert len(preds) == 1 and len(preds[0]) > 0, len(preds[0])
         assert np.isfinite(preds[0].bboxes_xyxy).all()
+        artifact = export.export_detection_model(model, {str(tmp_path / "det.pt2")!r}, image_hw=(64, 64), nms_top_k=64,
+                                                 max_predictions=10)
+        exported = export.load_exported(artifact.output_path).call(rng.randint(0, 256, (1, 64, 64, 3), dtype=np.uint8))
+        assert exported.boxes.shape == (1, 10, 4) and bool(torch.isfinite(exported.boxes).all())
+        kd = models.get("kd_module", num_classes=10, arch_params={{"student": "resnet18_cifar", "teacher": "resnet18_cifar"}},
+                        device="cpu")
+        kd_out = kd.net.train()(torch.rand(2, 3, 32, 32))
+        kd_loss, _ = kd_losses.KDLogitsLoss(temperature=2.0)(kd_out, torch.tensor([1, 2]))
+        assert not kd.net.teacher.training and bool(torch.isfinite(kd_loss))
         pose = models.get("yolo_nas_pose_n", image_size=64, device="cpu")
         poses = pose.predict([rng.randint(0, 256, (40, 64, 3), dtype=np.uint8)], conf=0.01)
         assert len(poses[0]) > 0 and poses[0].poses.shape[1:] == (17, 3) and np.isfinite(poses[0].poses).all()

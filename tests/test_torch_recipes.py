@@ -197,7 +197,7 @@ def test_recipe_callbacks_and_unported_branches_raise(tmp_path, monkeypatch):
     """Named pre-launch callbacks resolve as in the JAX trainer: the batch-size probe,
     called with the recipe alone, hands it back unchanged as the JAX one does; QAT's raises
     naming its ROADMAP item, an unknown name raises KeyError as the JAX registry does; a
-    teacher raises naming its ROADMAP item; ``pretrained_weights`` with an empty mirror raises
+    teacher source on a model without a teacher is ignored; ``pretrained_weights`` with an empty mirror raises
     ``FileNotFoundError`` naming the URL, as the JAX package does (``tests/test_torch_predict.py``
     holds the two to each other)."""
     import super_gradients_tpu.training.pre_launch_callbacks  # noqa: F401  (registers the JAX callbacks)
@@ -213,9 +213,11 @@ def test_recipe_callbacks_and_unported_branches_raise(tmp_path, monkeypatch):
         Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": ["NoSuchCallback"]})
     cfg = Trainer._trigger_cfg_modifying_callbacks({"pre_launch_callbacks_list": [lambda c: {**c, "seen": True}]})
     assert cfg["seen"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer._model_from_cfg({"architecture": "yolo_nas_s", "device": "cpu",
-                                 "checkpoint_params": {"teacher_checkpoint_path": "teacher.pth"}})
+    # a teacher source on a model without a teacher is not read, as in the JAX trainer
+    ignored = Trainer._model_from_cfg({"architecture": "resnet18_cifar", "device": "cpu",
+                                       "checkpoint_params": {"teacher_checkpoint_path": "teacher.pth"}})
+    fresh = models.get("resnet18_cifar", device="cpu").net.state_dict()
+    assert all(torch.equal(v, fresh[k]) for k, v in ignored.net.state_dict().items())
     monkeypatch.setenv("SG_PRETRAINED_DIR", str(tmp_path))
     url = "https://sg-hub-nv.s3.amazonaws.com/models/yolo_nas_s_coco.pth"
     with pytest.raises(FileNotFoundError, match=url):

@@ -164,10 +164,9 @@ def test_segmentation_visualization_callbacks_write_jax_drawings(tmp_path, monke
 
 
 def test_segmentation_callbacks_resolve_and_sliding_window_waits():
-    """The segmentation callbacks and (since the detection zoo slice) the sliding-window
-    validation resolve; the export check still waits, naming its ROADMAP item."""
+    """The segmentation callbacks, (since the detection zoo slice) the sliding-window validation
+    and (since the export slice) the export check resolve; no callback name is left unported."""
     for name in ("SegmentationVisualizationCallback", "ExtremeBatchSegVisualizationCallback",
-                 "SlidingWindowValidationCallback"):
+                 "SlidingWindowValidationCallback", "ModelConversionCheckCallback"):
         assert type(callbacks.resolve_callback({name: {}})).__name__ == name
-    with pytest.raises(KeyError, match="'Deployment and scale-out'"):
-        callbacks.resolve_callback("ModelConversionCheckCallback")
+    assert callbacks.NOT_PORTED == {}

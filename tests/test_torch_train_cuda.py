@@ -115,3 +115,40 @@ def test_batch_size_probe_reads_peak_memory_and_leaves_the_model():
     assert 0 < gbs[0] < gbs[1]
     assert all(torch.equal(before[k], v) for k, v in model.net.state_dict().items())
     assert all(p.grad is None for p in model.net.parameters()) and not model.net.training
+
+
+@pytest.mark.cuda
+def test_fp32_train_step_on_the_card_stays_near_fp64():
+    """``Trainer.prepare`` keeps an fp32 train copy NCHW on the card (``channels_last_training``):
+    one fp32 ResNet-18-CIFAR step's gradients (TF32 off) land within 9x the CPU's distance to
+    fp64 (cuDNN's fp32 convolutions alone land 2.8-8.6x the CPU's, ``tools/cudnn_conv_drift.py``;
+    2.6x here on an H100), where cuDNN's channels_last train-mode BatchNorm put them ~3900x."""
+    _needs_cuda()
+    from super_gradients_tpu_torch import models
+    from super_gradients_tpu_torch.training import Trainer
+
+    gen = torch.Generator().manual_seed(23)
+    x, y = torch.rand((8, 3, 32, 32), generator=gen), torch.randint(0, 10, (8,), generator=gen)
+    weights = models.get("resnet18_cifar", num_classes=10, seed=1, device="cpu").net.state_dict()
+
+    def grads(device, dtype):
+        model = models.get("resnet18_cifar", num_classes=10, device=device)
+        model.load_state_dict(weights)
+        model.net.to(dtype)
+        step = Trainer("fp32_step").prepare(model, dict(loss="CrossEntropyLoss", max_epochs=1), steps_per_epoch=1)
+        loss, _ = step.loss(step.forward(x.to(device, dtype)), y.to(device))
+        step.backward(loss)
+        return {k: p.grad.double().cpu() for k, p in step.state.net.named_parameters()}
+
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = grads("cuda", torch.float32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    cpu, ref = grads("cpu", torch.float32), grads("cpu", torch.float64)
+
+    def dist(g):
+        return float(sum(((g[k] - ref[k]) ** 2).sum() for k in ref) ** 0.5)
+
+    assert dist(card) <= 9 * dist(cpu), (dist(card), dist(cpu))

@@ -315,6 +315,42 @@ def scenario_loss(workdir):
     return {batch: _loss_on_slice(batch) for batch in (8, 7)}
 
 
+KD_SHAPES = {"KDLogitsLoss": (10,), "SegKDLoss": (3, 4, 5)}  # per-item logits: [C] and [C, H, W]
+KD_PARAMS = {"KDLogitsLoss": {"task_loss_fn": "CrossEntropyLoss", "distillation_loss_coeff": 0.3, "temperature": 2.0},
+             "SegKDLoss": {"temperature": 3.0}}
+
+
+def kd_loss_case(name: str, batch: int):
+    """fp64 student and teacher logits and int labels of ``batch`` items, from a seed."""
+    rng = np.random.RandomState(len(name) + batch)
+    shape = (batch, *KD_SHAPES[name])
+    return rng.randn(*shape) * 2, rng.randn(*shape) * 2, rng.randint(0, KD_SHAPES[name][0], batch)
+
+
+def kd_loss_value_and_grad(name: str, student, teacher, labels):
+    """The loss of ``KDOutput(student, teacher)`` and its student gradient (torch, fp64)."""
+    from super_gradients_tpu_torch.training.losses import get_loss
+    from super_gradients_tpu_torch.training.losses.kd_losses import KDOutput
+
+    s = torch.from_numpy(student).requires_grad_()
+    value, _ = get_loss(name, KD_PARAMS[name])(KDOutput(s, torch.from_numpy(teacher)), torch.from_numpy(labels))
+    value.backward()
+    return float(value.detach()), s.grad.numpy()
+
+
+def scenario_kd_loss(workdir):
+    """KDLogitsLoss and SegKDLoss on an even (8 = 4 + 4) and an uneven (7 = 3 + 4) split."""
+    from super_gradients_tpu_torch.parallel import local_batch_slice
+
+    out = {}
+    for name in KD_SHAPES:
+        for batch in (8, 7):
+            part = local_batch_slice(batch)
+            student, teacher, labels = kd_loss_case(name, batch)
+            out[name, batch] = kd_loss_value_and_grad(name, student[part], teacher[part], labels[part])
+    return out
+
+
 def scenario_metrics(workdir):
     return evaluate_metrics()
 
